@@ -11,12 +11,12 @@ from pebblesdr_tpu.demod.modes import DemodMode
 
 FS, N, NB = 2_048_000, 32768, 30
 
-# RDS bitstream: PS name "TPU FM  " on PI 0x54A8 (-> callsign WAAA)
+# RDS bitstream: PS name "PEBL FM " on PI 0x54A8 (-> callsign WAAA)
 bits = []
 for _ in range(20):
     for seg in range(4):
         b = (0 << 12) | (5 << 5) | seg
-        d = (ord("TPU FM  "[2 * seg]) << 8) | ord("TPU FM  "[2 * seg + 1])
+        d = (ord("PEBL FM "[2 * seg]) << 8) | ord("PEBL FM "[2 * seg + 1])
         bits.extend(rds.encode_group(0x54A8, b, 0xE0E0, d))
 diff, last = [], 0
 for b in bits:

@@ -1,17 +1,9 @@
-"""Round-4 features in one tour: the in-kernel noise blanker, CTCSS tone
+"""Round-4 features in one tour: the front-end noise blanker, CTCSS tone
 squelch, the DTMF dial decoder over the NFM chain, and the live control
 surface driven by scripted key events.
 
-Run on CPU or TPU:  python examples/05_interactive_and_decoders.py
+Run on the CPU or the card:  python examples/05_interactive_and_decoders.py
 """
-
-import os
-
-if os.environ.get("JAX_PLATFORMS") == "cpu":
-    # honor a CPU request even when a TPU plugin re-prepends itself
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 import jax.numpy as jnp
@@ -41,7 +33,7 @@ spikes = rng.choice(len(iq), 200, replace=False)
 iq[spikes] += 8.0 - 8.0j                       # impulse noise
 
 # ---------------------------------------------------------------- receiver:
-# FMN + noise blanker (runs INSIDE the fused front kernel) + CTCSS squelch
+# FMN + noise blanker (in the front end) + CTCSS squelch
 cfg = ReceiverConfig(sample_rate=FS, frames_per_buffer=N, mode=DemodMode.FMN,
                      enable_noise_blanker=True, ctcss_tone=123.0)
 rx = Receiver(cfg)

@@ -2,13 +2,13 @@
 
 tools/refharness builds PebbleSDR's actual pebblelib/application sources
 (read-only, Qt surface stubbed) into a headless CLI; this example runs the
-same broadband AM signal through that binary and through the TPU chain and
+same broadband AM signal through that binary and through this chain and
 prints the demodulated-sample agreement — the BASELINE.md north-star
 measured against the reference's arithmetic, not a reimplementation.
 
 Requires /root/reference and g++ (skips cleanly otherwise).
 
-Run on CPU or TPU:  python examples/06_reference_parity.py
+Run on the CPU or the card:  python examples/06_reference_parity.py
 """
 
 import os
@@ -44,7 +44,7 @@ def main() -> int:
     iq += (1e-3 * (rng.standard_normal(len(t))
                    + 1j * rng.standard_normal(len(t)))).astype(np.complex64)
 
-    print("running the TPU chain...")
+    print("running the chain...")
     got, rx = ph.run_chain(iq, fs, DemodMode.AM, 250_000.0, 32768)
     print("running the reference's compiled chain "
           "(Mixer -> Decimator -> CFastFIR -> AGC -> Demod_AM -> "

@@ -1,15 +1,15 @@
-"""PebbleSDR-TPU: a TPU-native software-defined-radio framework.
+"""PebbleSDR: a software-defined-radio framework on a JAX accelerator.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of PebbleSDR
+A from-scratch JAX/XLA re-design of the capabilities of PebbleSDR
 (reference: /root/reference, surveyed in SURVEY.md): a full SDR receive chain —
 IQ ingest, NCO mixing, halfband decimator cascades, FFT overlap-save bandpass,
 fractional resampling, windowed-FFT spectrum, AM/SAM/NFM/WFM(+RDS)/SSB/CW
 demodulation, AGC, noise blanking, adaptive noise filtering, IQ balance, and
 Goertzel digital-mode decoding — rebuilt as batched functional kernels over
 ``[channels, block]`` complex64 arrays with explicit carry-state pytrees,
-jit-compiled chains, and channel/time sharding over TPU meshes.
+jit-compiled chains, and channel/time sharding over device meshes.
 
-Key architectural differences from the reference (deliberate, TPU-first):
+Key architectural differences from the reference (deliberate):
   * per-sample stateful C++ loops -> batched pure functions w/ carry pytrees
   * QThread producer/consumer      -> double-buffered host feeder + jit steps
   * QMutex shared state            -> functional purity (no locks anywhere)

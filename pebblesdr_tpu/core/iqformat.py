@@ -10,7 +10,7 @@ deviceinterfacebase.h:105-117) and the CPX wire formats (pebblelib/cpx.h:43-92):
 plus optional I/Q order swap (some devices deliver QI).
 
 Decode runs as a jit-able device kernel so that byte->float conversion happens
-on-TPU right after DMA rather than on the host (the reference converts on the
+on the device right after the transfer rather than on the host (the reference converts on the
 CPU consumer thread).
 """
 

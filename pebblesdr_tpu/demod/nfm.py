@@ -5,7 +5,7 @@ algorithms — derivative-ratio FM1 (:99-119), conj-product phase-delta FM2
 (:124-140), and the CuteSDR NCO-PLL (:225-257) — plus DC-offset tracking LP
 and a voice low-pass.
 
-TPU-first: the conj-product form angle(x[n] * conj(x[n-1])) is exactly
+Design: the conj-product form angle(x[n] * conj(x[n-1])) is exactly
 vectorizable (one shifted multiply + atan2 over the block, carrying one sample
 across blocks) and is the default; the PLL variant is available for parity
 experiments (algorithm='pll').

@@ -9,7 +9,7 @@ side; rdsdecode.{h,cpp} + rbdsconstants.h host side):
     and group assembly into PI / PTY / PS name / RadioText
     (checkBlock :708+, processNewRdsBit :583+, CRdsDecode).
 
-TPU/host split: everything through soft symbol values is jit'd JAX
+Device/host split: everything through soft symbol values is jit'd JAX
 (RdsDemod.process); bit slicing, block sync, and text assembly are a small
 host state machine (RdsBlockDecoder / RdsGroupDecoder) — bit-level control
 flow XLA has no business compiling.
@@ -55,9 +55,9 @@ class RdsConfig:
     #                                          symbol stream so batched and
     #                                          per-block calls share the grid
     # composite -> 16 kHz decimation as ONE composed-FIR banded matmul
-    # (noble identity, like the chain's fused front) instead of the staged
+    # (noble identity, like the chain's front end) instead of the staged
     # per-stage polyphase passes — the RDS subchain's dominant cost at
-    # composite rate rides the MXU; "staged" keeps the per-stage form
+    # composite rate becomes one matmul; "staged" keeps the per-stage form
     h_composed: np.ndarray = static_field(default=None)
     composed: bool = static_field(default=True)
     # PREMIX (round 4): fold the -57 kHz mix INTO the decimation taps.
@@ -509,3 +509,27 @@ def encode_group(a: int, b: int, c: int, d: int, version_b=False) -> list[int]:
         assert _syndrome(block) == _expected_offset(name)
         out_bits.extend((block >> i) & 1 for i in range(25, -1, -1))
     return out_bits
+
+
+def ps_group_bits(pi: int, ps_text: str, repeats: int = 8) -> list[int]:
+    """Transmit side, for test signals: type-0A groups (PTY 5, no AF codes)
+    carrying an 8-character PS name, `repeats` full cycles."""
+    if len(ps_text) != 8:
+        raise ValueError("a PS name is exactly 8 characters")
+    bits = []
+    for _ in range(repeats):
+        for seg in range(4):
+            b = (5 << 5) | seg
+            d = (ord(ps_text[2 * seg]) << 8) | ord(ps_text[2 * seg + 1])
+            bits.extend(encode_group(pi, b, 0xE0E0, d))
+    return bits
+
+
+def differential_encode(bits) -> list[int]:
+    """The RDS differential coder (IEC 62106 §1.6): out_k = out_{k-1} ^ b_k."""
+    out = []
+    last = 0
+    for b in bits:
+        last ^= b
+        out.append(last)
+    return out

@@ -8,7 +8,7 @@ Capability parity with Demod_WFM (application/demod/demod_wfm.cpp):
   * RDS tap: the composite is mixed by -57 kHz and decimated for the RDS
     bit/block decoder (:297; implemented in demod/rds.py).
 
-TPU-first design: the discriminator is one shifted conj multiply + atan2 over
+Design: the discriminator is one shifted conj multiply + atan2 over
 the whole [C, N] block; pilot recovery is the shared PLL scan; the audio LP
 FIRs decimate (factor `audio_decim`) inside the conv so the expensive
 fractional resampler runs at a few-x audio rate rather than the 256 kHz
@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from pebblesdr_tpu.core.block import pytree_dataclass, static_field
+from pebblesdr_tpu.core.precision import DOT_PRECISION
 from pebblesdr_tpu.ops import fir, iir, mixer, pll
 
 PILOT_HZ = 19000.0
@@ -48,16 +49,6 @@ class WFMConfig:
     # reference-shaped Q=500 biquad BP + chunked PLL scan
     pilot_alg: str = static_field(default="open")
     pilot_open: pll.PilotOpenConfig = static_field(default=None)
-    # fused Pallas stereo tail (demux + decimating audio LP in ONE kernel,
-    # pallas_kernels.wfm_tail_packed); requires pilot_alg="open" + stereo.
-    # Set by the Receiver when the front runs on a real TPU.
-    pallas_tail: bool = static_field(default=False)
-    pallas_interpret: bool = static_field(default=False)
-    # kernel sub-block (rows per grid step), decided at BUILD time by
-    # tail_kernel_sub() so the state layout chosen in wfm_init and the demod
-    # path always agree; 0 = no valid sub-block exists (e.g. audio_decim not
-    # a power of two) and the XLA tail runs instead
-    tail_sub: int = static_field(default=0)
     # pilot notch: skipped when the audio LP already puts >= 55 dB on
     # 19 kHz (computed at design time) — the notch would be a no-op
     notch_needed: bool = static_field(default=True)
@@ -96,8 +87,7 @@ class WFMConfig:
              audio_decim: int = 4, rds_tap: bool = False,
              pilot_alg: str = "open", comp_decim: int = 1) -> "WFMConfig":
         # stereo: put the LP stopband at the 19 kHz pilot so the separate
-        # pilot notch becomes redundant (one fewer IIR pass; the Pallas tail
-        # kernel absorbs the longer kernel in the same Toeplitz dot).  Mono
+        # pilot notch becomes redundant (one fewer IIR pass).  Mono
         # keeps the wide transition (reference mono has no notch either,
         # demod_wfm.cpp:207-232).
         transition = (PILOT_HZ - 15000.0 if stereo
@@ -168,11 +158,6 @@ class WFMState:
     #                          (re rails then im rails; [0, 2] when unused)
 
 
-def _tail_d_rows(cfg: WFMConfig) -> int:
-    d = len(cfg.audio_taps) - 1
-    return ((d + 7) // 8) * 8
-
-
 def pilot_chunk_for(cfg: WFMConfig, n_block: int) -> int:
     """The open-pilot chunk length actually used at block length n_block
     (adapts down by halving until it divides the block)."""
@@ -182,32 +167,8 @@ def pilot_chunk_for(cfg: WFMConfig, n_block: int) -> int:
     return ell
 
 
-def tail_kernel_sub(cfg: WFMConfig, blk: int) -> int:
-    """Largest power-of-two kernel sub-block that divides blk and is a
-    multiple of both the pilot chunk and audio_decim; 0 if none exists
-    (then the fused Pallas tail is ineligible and the XLA tail runs).
-    Decided at build time so wfm_init's state layout and the demod path
-    always agree (an in-trace search could reach sub=0 and divide by zero
-    when audio_decim is not a power of two)."""
-    if not cfg.stereo or cfg.audio_decim <= 1:
-        return 0
-    ell = pilot_chunk_for(cfg, blk)
-    sub = min(2048, blk)
-    while sub and (blk % sub or sub % ell or sub % cfg.audio_decim):
-        sub //= 2
-    return sub
-
-
 def wfm_init(cfg: WFMConfig, channels: int) -> WFMState:
     t = len(cfg.audio_taps)
-    if cfg.pallas_tail and cfg.stereo:
-        # fused-kernel layout: ONE packed [d_rows, 2C] time-major history
-        # ([mono | lmr] lanes) in lp_tail_mono; lp_tail_lmr is empty
-        tail_m = jnp.zeros((_tail_d_rows(cfg), 2 * channels), jnp.float32)
-        tail_s = jnp.zeros((channels, 0), jnp.float32)
-    else:
-        tail_m = fir.fir_tail_init(channels, t, jnp.float32)
-        tail_s = fir.fir_tail_init(channels, t, jnp.float32)
     return WFMState(
         last=jnp.zeros((channels,), jnp.complex64),
         pilot_bq=iir.biquad_state_init(channels),
@@ -216,8 +177,8 @@ def wfm_init(cfg: WFMConfig, channels: int) -> WFMState:
         pilot_level=jnp.zeros((channels,), jnp.float32),
         deemph_l=jnp.zeros((channels,), jnp.float32),
         deemph_r=jnp.zeros((channels,), jnp.float32),
-        lp_tail_mono=tail_m,
-        lp_tail_lmr=tail_s,
+        lp_tail_mono=fir.fir_tail_init(channels, t, jnp.float32),
+        lp_tail_lmr=fir.fir_tail_init(channels, t, jnp.float32),
         notch_l=iir.biquad_state_init(channels),
         notch_r=iir.biquad_state_init(channels),
         comp_tail=jnp.zeros(
@@ -247,147 +208,8 @@ def _ewma_rows(prev: jax.Array, p: jax.Array, a: float):
     with jax.ensure_compile_time_eval():
         lmat_d = jnp.asarray(lmat.astype(np.float32))
         seed_d = jnp.asarray((a ** (kk + 1)).astype(np.float32))
-    return (jnp.matmul(p, lmat_d, precision=jax.lax.Precision.HIGHEST)
+    return (jnp.matmul(p, lmat_d, precision=DOT_PRECISION)
             + prev[:, None] * seed_d[None, :])
-
-
-def wfm_demod_tm(cfg: WFMConfig, state: WFMState, raw_t: jax.Array,
-                 new_last: jax.Array, fold: int = 1, n_block: int = 0,
-                 pre_decimated: bool = False,
-                 comp_tail_new: jax.Array | None = None):
-    """Batched WFM stereo tail on the TIME-MAJOR (optionally folded)
-    discriminator plane from the fused front's in-kernel discriminator
-    (pallas_kernels.fused_front_packed disc_gain): pilot recovery
-    (pll.pilot_open_core_tm) -> fused Pallas demux + decimating LP ->
-    de-emphasis, with NO [C, N] channel-major relayout of the composite —
-    the two transposes and the separate atan2 pass of the wfm_demod path
-    disappear.
-
-    raw_t: [N/fold, fold*C] f32; new_last: [C] complex64 (the carried
-    previous-composite sample the front returned — stored into state.last).
-    Requires stereo + pallas_tail + tail_sub (the Receiver gates this).
-    Returns (state', out) exactly like wfm_demod(n_block=...).
-    """
-    comp_tail = state.comp_tail
-    if cfg.comp_decim > 1:
-        n_block = n_block // cfg.comp_decim
-        if pre_decimated:
-            # the fused front already decimated the composite IN VMEM
-            # (pallas_kernels comp_taps) and carries the FIR history itself
-            comp_tail = comp_tail_new
-        else:
-            # composite decimation in the TIME-MAJOR layout (no relayout):
-            # banded-matmul FIR along the time axis.  The Receiver picks
-            # fold=1 for comp_decim configs (hq benches at >= 64 channels);
-            # a PRE-FOLDED feeder plane is unfolded here first — one f32
-            # relayout on a correctness-only path
-            if fold > 1:
-                mseg0, gcc0 = raw_t.shape
-                c0 = gcc0 // fold
-                raw_t = jnp.transpose(raw_t.reshape(mseg0, fold, c0),
-                                      (1, 0, 2)).reshape(mseg0 * fold, c0)
-                fold = 1
-            raw_t, tail_t = fir.tm_fir_decimate(
-                raw_t, np.asarray(cfg.comp_taps), state.comp_tail.T,
-                cfg.comp_decim)
-            comp_tail = tail_t.T
-
-    mseg, gcc = raw_t.shape
-    c = gcc // fold
-    n = mseg * fold
-    ell = pilot_chunk_for(cfg, n_block)
-    k_blocks = n // n_block
-    pll_state, (p0, wf, _), level_f = pll.pilot_open_core_tm(
-        cfg.pilot_open, state.pilot_pll, raw_t, fold=fold, chunk=ell)
-    fch = n_block // ell
-    lv = level_f.reshape(c, k_blocks, fch)[:, :, -1]       # [C, K]
-    level = lv[:, -1]
-    locked = lv > 0.002
-
-    from pebblesdr_tpu.ops import pallas_kernels as _pk
-
-    d_rows = _tail_d_rows(cfg)
-    sub = cfg.tail_sub
-    w_np = _pk.build_composed_w(
-        np.asarray(cfg.audio_taps, np.float64), cfg.audio_decim,
-        sub, d_rows - (len(cfg.audio_taps) - 1))
-    with jax.ensure_compile_time_eval():
-        wt_d = jnp.asarray(np.ascontiguousarray(w_np.T))
-    fseg = (n // ell) // fold
-    p0_t = jnp.transpose(p0.reshape(c, fold, fseg), (2, 1, 0)
-                         ).reshape(fseg, gcc)
-    wf_t = jnp.transpose(wf.reshape(c, fold, fseg), (2, 1, 0)
-                         ).reshape(fseg, gcc)
-    if fold > 1:
-        # per-group LP history halos straight from the time-major rows
-        rows = raw_t[mseg - d_rows:]                       # [d_rows, GC]
-        t_idx = np.arange(mseg - d_rows, mseg)
-        f_idx = t_idx // ell
-        t_off = jnp.asarray((t_idx - f_idx * ell).astype(np.float32))
-        tails_m = [state.lp_tail_mono[:, :c]]
-        tails_l = [state.lp_tail_mono[:, c:]]
-        for g in range(1, fold):
-            gp = g - 1
-            idx_g = (gp * fseg + f_idx).astype(np.int32)
-            ph_h = (jnp.take(p0, jnp.asarray(idx_g), axis=1)
-                    + jnp.take(wf, jnp.asarray(idx_g), axis=1)
-                    * t_off[None, :]).T                    # [d_rows, C]
-            mono_h = rows[:, gp * c:(gp + 1) * c]
-            tails_m.append(mono_h)
-            tails_l.append(mono_h * 2.0 * jnp.sin(2.0 * ph_h))
-        tail_in = jnp.concatenate(tails_m + tails_l, axis=1)
-    else:
-        tail_in = state.lp_tail_mono
-    audio_pk, tail_pk = _pk.wfm_tail_packed(
-        raw_t, p0_t, wf_t, tail_in, wt_d, cfg.audio_decim, d_rows, ell,
-        sub_block=sub, interpret=cfg.pallas_interpret)
-    m_out = audio_pk.shape[0]
-    mono_a = jnp.transpose(audio_pk[:, :gcc].reshape(m_out, fold, c),
-                           (2, 1, 0)).reshape(c, fold * m_out)
-    lmr_a = jnp.transpose(audio_pk[:, gcc:].reshape(m_out, fold, c),
-                          (2, 1, 0)).reshape(c, fold * m_out)
-    gl = (fold - 1) * c
-    tail_m = jnp.concatenate(
-        [tail_pk[:, gl:gl + c], tail_pk[:, gcc + gl:gcc + gl + c]], axis=1)
-
-    m_all = lmr_a.shape[-1]
-    lmr_a = jnp.where(locked[:, :, None],
-                      lmr_a.reshape(c, k_blocks, m_all // k_blocks),
-                      0.0).reshape(c, m_all)
-    left = mono_a + lmr_a
-    right = mono_a - lmr_a
-    alpha = iir.deemphasis_alpha(cfg.deemphasis_us, cfg.audio_rate)
-    lr = jnp.concatenate([left, right], axis=0)
-    if cfg.notch_needed:
-        notch_lr, lr = iir.biquad_apply(
-            jnp.concatenate([state.notch_l, state.notch_r], axis=0), lr,
-            cfg.pilot_notch)
-    else:
-        notch_lr = jnp.concatenate([state.notch_l, state.notch_r], axis=0)
-    d_lr, lr = iir.first_order_apply(
-        jnp.concatenate([state.deemph_l, state.deemph_r], axis=0), lr,
-        alpha, 1.0 - alpha)
-    left, right = lr[:c], lr[c:]
-
-    rds_bb = None
-    if cfg.rds_tap:
-        # RDS premixes the -57 kHz shift INTO its decimation taps
-        # (rds.RdsConfig.premix): ship the RAW REAL composite channel-major
-        # — one (half-traffic, f32) transpose of the discriminator plane,
-        # no composite-rate oscillator, no complex baseband
-        rds_bb = jnp.transpose(raw_t.reshape(mseg, fold, c), (2, 1, 0)
-                               ).reshape(c, n)
-
-    new_state = WFMState(
-        last=new_last, pilot_bq=state.pilot_bq, pilot_pll=pll_state,
-        pilot_level=level, deemph_l=d_lr[:c], deemph_r=d_lr[c:],
-        lp_tail_mono=tail_m, lp_tail_lmr=state.lp_tail_lmr,
-        notch_l=notch_lr[:c], notch_r=notch_lr[c:], comp_tail=comp_tail,
-        mono_lp_bq=state.mono_lp_bq,
-)
-    out = {"left": left, "right": right, "pilot_locked": locked,
-           "rds_baseband": rds_bb}
-    return new_state, out
 
 
 def wfm_demod(cfg: WFMConfig, state: WFMState, x: jax.Array,
@@ -400,10 +222,6 @@ def wfm_demod(cfg: WFMConfig, state: WFMState, x: jax.Array,
     pilot PLL matches sequential calls to ~1e-3 rad — fp32 ramp precision),
     and the per-block pilot lock EWMA keeps its per-call semantics via a
     closed-form K-matmul.
-
-    (The batched Receiver path with the fused front uses wfm_demod_tm
-    instead — the front's in-kernel discriminator hands it the time-major,
-    optionally time-folded, raw plane directly.)
 
     Returns (state', out) with out = dict(left [C, M], right [C, M],
     pilot_locked ([C] bool, or [C, K] when n_block), rds_baseband
@@ -437,7 +255,6 @@ def wfm_demod(cfg: WFMConfig, state: WFMState, x: jax.Array,
     n = raw.shape[-1]
     k_blocks = (n // n_block) if n_block else 1
 
-    use_kernel = False
     if cfg.stereo:
         # --- pilot recovery ---------------------------------------------------
         if cfg.pilot_alg == "open":
@@ -448,21 +265,8 @@ def wfm_demod(cfg: WFMConfig, state: WFMState, x: jax.Array,
             # blockwise and batched calls see identical chunk grids.
             nb_ = n_block or n
             ell = pilot_chunk_for(cfg, nb_)
-            # kernel eligibility was decided at build time (tail_kernel_sub);
-            # cfg.tail_sub divides blk, so it divides any whole-block n
-            use_kernel = (cfg.pallas_tail and cfg.tail_sub > 0
-                          and n % cfg.tail_sub == 0 and n % ell == 0
-                          # Mosaic rejects the kernel's lane-offset slices
-                          # on sub-tile-width planes; the packed [*, 2C]
-                          # layout needs the full 128 lanes (folded entries
-                          # reach this via wfm_demod_tm instead)
-                          and 2 * c >= 128)
-            if use_kernel:
-                pll_state, (p0, wf, _tin), level_f = pll.pilot_open_core(
-                    cfg.pilot_open, state.pilot_pll, raw, chunk=ell)
-            else:
-                pll_state, phases, level_f = pll.pilot_open_run(
-                    cfg.pilot_open, state.pilot_pll, raw, chunk=ell)
+            pll_state, phases, level_f = pll.pilot_open_run(
+                cfg.pilot_open, state.pilot_pll, raw, chunk=ell)
             bq_state = state.pilot_bq
             # lock level = smoothed coherent pilot amplitude (~A/2 locked);
             # per logical block, read it at the block's final chunk — same
@@ -509,57 +313,15 @@ def wfm_demod(cfg: WFMConfig, state: WFMState, x: jax.Array,
                 level = 0.9 * state.pilot_level + 0.1 * coh
                 locked = level > 0.002                             # [C]
         # --- demux + decimating audio LP --------------------------------------
-        if cfg.pilot_alg == "open" and use_kernel:
-            # fused Pallas kernel: sin(2*phase) demux + shared-band Toeplitz
-            # LP dot in ONE pass over the composite (the XLA demux multiply +
-            # windowed banded matmul cost ~0.05 ms/block at 64ch, dominated
-            # by the window-copy relayout)
-            from pebblesdr_tpu.ops import pallas_kernels as _pk
-
-            d_rows = _tail_d_rows(cfg)
-            sub = cfg.tail_sub
-            w_np = _pk.build_composed_w(
-                np.asarray(cfg.audio_taps, np.float64), cfg.audio_decim,
-                sub, d_rows - (len(cfg.audio_taps) - 1))
-            with jax.ensure_compile_time_eval():
-                wt_d = jnp.asarray(np.ascontiguousarray(w_np.T))
-            audio_pk, tail_pk = _pk.wfm_tail_packed(
-                raw.T, p0.T, wf.T, state.lp_tail_mono, wt_d,
-                cfg.audio_decim, d_rows, ell, sub_block=sub,
-                interpret=cfg.pallas_interpret)
-            mono_a = audio_pk[:, :c].T
-            lmr_a = audio_pk[:, c:].T
-            tail_m, tail_s = tail_pk, state.lp_tail_lmr
-        else:
-            lmr = raw * 2.0 * jnp.sin(2.0 * phases)  # L-R at baseband
-            t_len = len(cfg.audio_taps)
-            if cfg.pallas_tail:
-                # the state carries the KERNEL's packed [d_rows, 2C]
-                # time-major history (folded dispatches consume it via
-                # wfm_demod_tm); rows above T-1 are zero-weighted in the
-                # kernel's W pad, so slicing the last T-1 rows converts to
-                # the FIR layout exactly — this XLA fallback serves
-                # narrow-lane unfolded dispatches (Mosaic rejects sub-tile
-                # kernel planes) against the same state
-                d_rows_x = _tail_d_rows(cfg)
-                tm_in = state.lp_tail_mono[d_rows_x - (t_len - 1):, :c].T
-                ts_in = state.lp_tail_mono[d_rows_x - (t_len - 1):, c:].T
-            else:
-                tm_in, ts_in = state.lp_tail_mono, state.lp_tail_lmr
-            # mono + L-R share the same LP: ONE stacked [2C, N] banded-matmul
-            # FIR (static taps_np enables the MXU fast path; 2C rows double
-            # MXU lane occupancy at small channel counts)
-            both, tails = fir.fir_apply_real_signal(
-                jnp.concatenate([raw, lmr], axis=0), taps,
-                jnp.concatenate([tm_in, ts_in], axis=0),
-                decim=cfg.audio_decim, taps_np=cfg.audio_taps)
-            mono_a, lmr_a = both[:c], both[c:]
-            tail_m, tail_s = tails[:c], tails[c:]
-            if cfg.pallas_tail:
-                packed = jnp.zeros((d_rows_x, 2 * c), jnp.float32)
-                packed = packed.at[d_rows_x - (t_len - 1):, :c].set(tail_m.T)
-                packed = packed.at[d_rows_x - (t_len - 1):, c:].set(tail_s.T)
-                tail_m, tail_s = packed, state.lp_tail_lmr
+        lmr = raw * 2.0 * jnp.sin(2.0 * phases)  # L-R at baseband
+        # mono + L-R share the same LP: ONE stacked [2C, N] banded-matmul
+        # FIR (static taps_np enables the banded fast path)
+        both, tails = fir.fir_apply_real_signal(
+            jnp.concatenate([raw, lmr], axis=0), taps,
+            jnp.concatenate([state.lp_tail_mono, state.lp_tail_lmr], axis=0),
+            decim=cfg.audio_decim, taps_np=cfg.audio_taps)
+        mono_a, lmr_a = both[:c], both[c:]
+        tail_m, tail_s = tails[:c], tails[c:]
         if n_block:
             m_all = lmr_a.shape[-1]
             lmr_a = jnp.where(

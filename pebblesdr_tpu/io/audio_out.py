@@ -3,7 +3,7 @@
 Capability parity with Audio/AudioQT/AudioPA (pebblelib/audio.{h,cpp}
 factory, audioqt.cpp, audiopa.cpp: StartOutput(dev, rate) +
 SendToOutput(buf, n, gain, mute)): same surface, with sinks that make sense
-on a headless TPU host — WAV file, raw-PCM pipe to an external player
+on a headless accelerator host — WAV file, raw-PCM pipe to an external player
 (aplay/ffplay when present), and null.  No sound-card stack is reimplemented
 (SURVEY §2.5: vendored portaudio not reimplemented).
 """
@@ -206,7 +206,7 @@ class PortAudioOutput(AudioOutput):
     + Pa_WriteStream per send.  Pa_WriteStream returning
     paOutputUnderflowed increments `underruns` (the same accounting
     PacedOutput keeps for the pipe sinks).  Raises a clear RuntimeError at
-    start() when no libportaudio is installed — headless TPU hosts keep
+    start() when no libportaudio is installed — headless hosts keep
     using wav/pipe/null."""
 
     _PA_FLOAT32 = 0x00000001

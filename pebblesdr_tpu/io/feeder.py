@@ -3,9 +3,9 @@
 Capability parity with ProducerConsumer (pebblelib/producerconsumer.h:18-96):
 the reference runs a producer QThread filling a semaphore-guarded ring of N
 buffers while a consumer thread drains them through the DSP chain.  The
-TPU-native analog: a background thread reads Source blocks and stages them
+device analog: a background thread reads Source blocks and stages them
 into a small queue as pinned numpy (re, im) planes; the consumer pulls the
-next block while the current jit step executes on-device, so host IO and TPU
+next block while the current jit step executes on-device, so host IO and device
 compute overlap (JAX dispatch is async — device_put of block k+1 proceeds
 while step k runs).
 
@@ -41,8 +41,8 @@ class Feeder:
             if blk is None:
                 self.q.put(None)
                 return
-            # [N, 2C] lane-packed plane (re lanes then im lanes): the fused
-            # front end's zero-copy entry layout
+            # [N, 2C] packed plane (re columns then im columns): the
+            # Receiver's entry layout
             ri = np.concatenate([
                 np.broadcast_to(blk.real.astype(np.float32)[:, None],
                                 (self.block, self.channels)),

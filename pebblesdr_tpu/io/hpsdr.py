@@ -1,7 +1,7 @@
 """OpenHPSDR / Metis network protocol (protocol 1): client source + server.
 
 Capability parity with plugins/HPSDRDevice in its METIS (ethernet) personality
-— the OZY USB path is out of scope on a TPU host (SURVEY.md §2.3/§2.5):
+— the OZY USB path is out of scope on an accelerator host (SURVEY.md §2.3/§2.5):
 
   * UDP discovery: broadcast <0xEFFE><0x02><60 zero bytes> to port 1024; the
     radio answers <0xEFFE><0x02|0x03><MAC[6]><fwVersion><boardId><49 zeros>

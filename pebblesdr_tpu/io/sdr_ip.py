@@ -1,8 +1,8 @@
 """RFSpace SDR-IP / AFEDRI network protocol (ASCP): client source + server.
 
 Capability parity with plugins/RFSpaceDevice (rfspacedevice.{h,cpp}) in its
-network (SDR-IP) personality — the USB SDR-IQ path is out of scope on a TPU
-host (SURVEY.md §2.3/§2.5):
+network (SDR-IP) personality — the USB SDR-IQ path is out of scope on an
+accelerator host (SURVEY.md §2.3/§2.5):
   * ASCP control over TCP: 2-byte header (13-bit length + 3-bit type,
     rfspacedevice.cpp:1334-1342), little-endian control-item codes — receiver
     state 0x0018 (run/stop, rfspacedevice.cpp:1143-1159), NCO frequency 0x0020

@@ -6,7 +6,7 @@ Hz) plus a high-group (1209-1633 Hz) tone.  The decoder validates the ITU
 Q.24-style constraints: minimum tone duration, inter-digit pause, twist
 (low/high level difference) limit, and second-best rejection in each group.
 
-TPU-first: all 8 group frequencies for all frames evaluate as ONE matmul
+Design: all 8 group frequencies for all frames evaluate as ONE matmul
 over the framed audio (goertzel.dft_vectors) — there is no per-sample
 recurrence anywhere.  The tiny per-frame digit state machine runs host-side
 on the [F, 8] power matrix, like the other host decoders (morse, rtty).

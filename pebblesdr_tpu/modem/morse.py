@@ -7,7 +7,7 @@ Capability parity with MorseDigitalModem (plugins/MorseDigitalModem/morse.cpp):
     via dot/dash moving averages (morse.h:86-178);
   * MorseCode table lookup -> text (modem.morse_code).
 
-Split TPU/host: frame powers + OOK decisions are the jit'd device part
+Split device/host: frame powers + OOK decisions are the jit'd device part
 (MorseModem.detect); run-length timing and table lookup are a tiny host state
 machine (MorseDecoder.feed) — the analog of the reference's consumer-thread
 character assembly.

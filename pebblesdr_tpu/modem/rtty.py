@@ -4,7 +4,7 @@ Capability parity with RttyDigitalModem (plugins/RttyDigitalModem): 45.45 baud
 170 Hz-shift FSK (amateur standard), mark/space tone discrimination, async
 start/stop framing, LTRS/FIGS shifted Baudot decode (modem.baudot).
 
-TPU/host split mirrors the Morse modem: mark/space tone powers per frame are
+Device/host split mirrors the Morse modem: mark/space tone powers per frame are
 one matmul Goertzel (jit); the UART-style bit framing + Baudot table is a
 host state machine.
 """

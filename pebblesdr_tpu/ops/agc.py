@@ -7,7 +7,7 @@ ratio 0.3) smoothers, optional hang timer, knee/slope gain law, and a signal
 delay line (DELAY_TIMECONST=15 ms) aligning gain with signal; modes
 OFF/FAST/MED/SLOW/LONG (agc.cpp:52-200, constants agc.h:31-59).
 
-TPU-first design, hybrid parallel/sequential:
+Design, hybrid parallel/sequential:
   * magnitude->log and the sliding-window peak are parallel (reduce_window max);
   * the attack/decay smoothers switch coefficients on compare — a nonlinear
     recurrence — so they run as ONE lax.scan over the block with tiny scalar
@@ -215,7 +215,7 @@ def _agc_apply_parallel(cfg: AGCConfig, state: AGCState, x: jax.Array):
 def _windowed_max(ext: jax.Array, w: int) -> jax.Array:
     """Trailing sliding-window max via van Herk/Gil-Werman: two cummax passes
     instead of a width-w reduce_window (which XLA compiles impractically
-    slowly for w ~ 10^3 on TPU).  ext: [C, N + w - 1] -> [C, N] where
+    slowly for w ~ 10^3).  ext: [C, N + w - 1] -> [C, N] where
     out[i] = max(ext[i:i+w])."""
     c, l = ext.shape
     n = l - w + 1
@@ -247,7 +247,7 @@ def agc_apply(cfg: AGCConfig, state: AGCState, x: jax.Array):
 
     algorithm='parallel' (default): windowed max -> decaying-max release ->
     attack EWMA, all associative scans / reduce_windows — zero sequential
-    steps, the TPU-native formulation.  algorithm='scan' is the sample-exact
+    steps.  algorithm='scan' is the sample-exact
     CuteSDR attack/decay/hang recurrence via lax.scan (parity reference).
     """
     if cfg.mode == "off":

@@ -11,7 +11,7 @@ Capability parity with Decimator/HalfbandFilter (pebblelib/decimator.{h,cpp}):
   * per-stage streaming state (convolveOS saved tail, decimator.cpp:323-378)
     -> explicit [C, T-1] tails in DecimatorState.
 
-TPU-first design: each stage is one strided XLA conv over the whole
+Design: each stage is one strided XLA conv over the whole
 [channels, block]; the python loop over stages unrolls at trace time into a
 fused pipeline.  Unlike the reference's stage-merging optimization
 (decimator.cpp:130-143, which fights per-call overhead), XLA fuses the chain
@@ -107,9 +107,9 @@ def compose_response(plan: DecimatorPlan) -> np.ndarray:
 
     conv(h1) ↓2 conv(h2) ↓2 ... == conv(H) ↓2^k with
     H = h1 * up2(h2) * up4(h3) * ...  (float64 host-side).  The composed form
-    is the TPU fast path: the whole cascade becomes a single banded matmul on
-    the MXU instead of k strided passes (the staged form's per-stage
-    even/odd splits and tails).  Matches the staged pipeline exactly in exact
+    is the front end's path (ops.front): the whole cascade becomes one
+    polyphase convolution instead of k strided passes (the staged form's
+    per-stage even/odd splits and tails).  Matches the staged pipeline exactly in exact
     arithmetic; verified to ~1e-7 relative in float32.
     """
     h = np.array([1.0])

@@ -8,7 +8,7 @@ Capability parity with CFastFIR (pebblelib/fastfir.{h,cpp}):
     -> IFFT, emit B samples, carry B-sample input overlap
     (ProcessData, fastfir.cpp:281-319; CpxMpy :325-334).
 
-TPU-first design: the whole [channels, 2B] batch goes through one jnp.fft.fft
+Design: the whole [channels, 2B] batch goes through one jnp.fft.fft
 (XLA's batched FFT), the mask multiply fuses into the surrounding elementwise
 ops, and the carried overlap is an explicit [C, B] state array.  The reference
 accumulates input to 2048 before each FFT; here the chain planner fixes the
@@ -77,8 +77,7 @@ def apply_many(state: jax.Array, x_cat: jax.Array, mask: jax.Array,
     x_cat: [C, K*block] (K consecutive blocks concatenated in time),
     state: [C, block] previous block.  Returns (new_state, y [C, K*block]).
     The batched form exists so a multi-block dispatch pays the op-launch
-    overhead once instead of K times (lax.scan tail ops dominate the
-    demod-rate cost on a network-attached TPU).
+    overhead once instead of K times.
 
     seg_mult > 1 additionally LENGTHENS the overlap-save segments: FFT size
     L = seg_mult*B, each segment emitting T = L - B samples, so the

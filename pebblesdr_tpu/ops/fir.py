@@ -8,7 +8,7 @@ Covers the capabilities of the reference FIR family:
   * the per-stage overlap-save convolution of HalfbandFilter::convolveOS
     (pebblelib/decimator.cpp:323-378) — here the carried tail + XLA conv.
 
-TPU-first design: streaming state is an explicit [C, T-1] input tail carried
+Design: streaming state is an explicit [C, T-1] input tail carried
 across blocks (the reference keeps a malloc'd lastX buffer per filter object);
 the convolution itself is one lax.conv_general_dilated over the whole block —
 real taps process re/im as a batch, complex taps use a 2x2 real filter bank.
@@ -22,49 +22,11 @@ import jax.numpy as jnp
 import numpy as np
 import scipy.signal
 
-# MXU precision for the audio-path banded/chunked matmuls.  HIGH (bf16_3x)
-# carries ~f32 dot-product accuracy at 3 MXU passes; HIGHEST (6 passes)
-# measured ~2x the matmul time for no audible gain (audio floor is already
-# set by the f32 signal path itself).  Same policy as ops/spectrum.py.
-_PREC = "high"
-
 from pebblesdr_tpu.core import windows as win
+from pebblesdr_tpu.core.precision import DOT_PRECISION
 
 
 # ---------------------------------------------------------------- design (host)
-
-def tm_fir_decimate(x_t: jax.Array, taps_np: np.ndarray, tail_t: jax.Array,
-                    decim: int, seg: int = 512):
-    """Streaming decimating FIR along axis 0 of a TIME-MAJOR plane
-    [M, C] float32 (all lanes share the taps) — used by the WFM composite
-    decimator on the batched tail, where relayout to channel-major would
-    cost two full-plane transposes.
-
-    One banded-operator einsum per segment rides the MXU (the dense
-    overcompute inside the band is negligible next to keeping the plane
-    in its layout).  tail_t: [T-1, C] carried history rows.
-    Returns (y_t [M//decim, C], new_tail_t)."""
-    t = len(taps_np)
-    m, c = x_t.shape
-    while m % seg:
-        seg //= 2
-    xx = jnp.concatenate([tail_t, x_t], axis=0)       # [M+T-1, C]
-    k = m // seg
-    b = jnp.asarray(banded_fir_matrix(np.asarray(taps_np, np.float32),
-                                      seg, decim))     # [seg+T-1, seg/decim]
-    # windows[i] = xx[i*seg : i*seg+seg+T-1] built from two reshapes
-    base = xx[:m].reshape(k, seg, c)
-    if t > 1:
-        carry = x_t.reshape(k, seg, c)[:, seg - (t - 1):, :]
-        wins = jnp.concatenate([base, carry], axis=1)  # [K, seg+T-1, C]
-    else:
-        wins = base
-    y = jnp.einsum("kuc,um->kmc", wins, b,
-                   precision=_PREC)                    # [K, seg/decim, C]
-    y_t = y.reshape(m // decim, c)
-    new_tail = xx[-(t - 1):] if t > 1 else jnp.zeros((0, c), x_t.dtype)
-    return y_t, new_tail
-
 
 def design_lowpass_kaiser(cutoff_hz: float, sample_rate: float, atten_db: float = 60.0,
                           transition_hz: float | None = None, max_taps: int = 127) -> np.ndarray:
@@ -188,7 +150,7 @@ def _conv_real(x2: jax.Array, taps: jax.Array, stride: int) -> jax.Array:
     rhs = taps[::-1][None, None, :].astype(jnp.float32)
     out = jax.lax.conv_general_dilated(
         lhs, rhs, window_strides=(stride,), padding="VALID",
-        dimension_numbers=("NCH", "OIH", "NCH"),
+        dimension_numbers=("NCH", "OIH", "NCH"), precision=DOT_PRECISION,
     )
     return out[:, 0, :]
 
@@ -248,11 +210,10 @@ def fir_apply_complex(x: jax.Array, taps_c: jax.Array, tail: jax.Array,
                       taps_np: np.ndarray | None = None):
     """Streaming FIR with complex taps (Hilbert / shifted bandpass).
 
-    Pass taps_np (static numpy complex) to take the banded-matmul MXU fast
+    Pass taps_np (static numpy complex) to take the banded-matmul fast
     path: the complex product needs each real input row against BOTH tap
     sets, which is exactly fir_apply_real_signal_pair on the stacked
-    [re; im] rows — ONE window stack, one matmul (XLA's conv lowering for
-    ~10^2-tap kernels over [C, ~10^4] is ~7x slower on TPU).
+    [re; im] rows — ONE window stack, one matmul.
     Fallback: one conv with a [2out, 2in, T] real filter bank.
     """
     c, n = x.shape
@@ -278,7 +239,7 @@ def fir_apply_complex(x: jax.Array, taps_c: jax.Array, tail: jax.Array,
     ], axis=0)  # [2, 2, T]
     out = jax.lax.conv_general_dilated(
         lhs, rhs, window_strides=(decim,), padding="VALID",
-        dimension_numbers=("NCH", "OIH", "NCH"),
+        dimension_numbers=("NCH", "OIH", "NCH"), precision=DOT_PRECISION,
     )  # [C, 2, M]
     y = jax.lax.complex(out[:, 0, :], out[:, 1, :]).astype(jnp.complex64)
     new_tail = xx[:, -(t - 1):] if t > 1 else jnp.zeros((c, 0), x.dtype)
@@ -291,8 +252,7 @@ _BANDED_MAX_ENTRIES = 4_000_000
 
 def banded_fir_matrix(taps_np: np.ndarray, n: int, decim: int = 1) -> np.ndarray:
     """[N+T-1, N//decim] banded operator: y = x_ext @ B == causal FIR.
-    Static-taps MXU fast path for small demod-rate blocks (convs with ~10^2
-    taps over [C, ~10^3] lower poorly on TPU; one matmul is microseconds)."""
+    Static-taps fast path for small demod-rate blocks: one matmul."""
     key = (taps_np.tobytes(), n, decim)
     if key not in _banded_cache:
         t = len(taps_np)
@@ -314,9 +274,10 @@ def _banded_seg(n: int, t: int, decim: int) -> int:
     """Segment length for the windowed long-input FIR path; 0 if none fits.
 
     Total MACs = (n/decim outputs) x (seg+T-1 read rows), so the SMALLEST
-    segment wins on FLOPs — but the matmul needs >= 64 output columns
-    (seg/decim) to keep MXU lanes busy.  Pick the smallest segment meeting
-    both; at decim >= 4 this cuts the dense-band waste ~7x vs always-2048."""
+    segment wins on FLOPs — but a matmul with fewer than 64 output columns
+    (seg/decim) is too narrow to run efficiently.  Pick the smallest segment
+    meeting both; at decim >= 4 this cuts the dense-band waste ~7x vs
+    always-2048."""
     for seg in (256, 512, 1024, 2048):
         if (n % seg == 0 and seg % decim == 0 and seg >= t
                 and seg // decim >= 64
@@ -333,7 +294,7 @@ def fir_apply_real_signal(x: jax.Array, taps: jax.Array, tail: jax.Array,
                           decim: int = 1, taps_np: np.ndarray | None = None):
     """Streaming FIR on a real float32 signal [C, N] (audio-path filters).
 
-    Pass taps_np (static numpy) to enable the banded-matmul MXU fast path for
+    Pass taps_np (static numpy) to enable the banded-matmul fast path for
     small blocks; falls back to XLA conv otherwise (identical math).
     """
     t = taps.shape[0] if taps is not None else len(taps_np)
@@ -342,12 +303,11 @@ def fir_apply_real_signal(x: jax.Array, taps: jax.Array, tail: jax.Array,
     if (taps_np is not None
             and (n + t - 1) * (n // decim) <= _BANDED_MAX_ENTRIES):
         b = jnp.asarray(banded_fir_matrix(np.asarray(taps_np, np.float32), n, decim))
-        y = jnp.matmul(xx, b, precision=_PREC)
+        y = jnp.matmul(xx, b, precision=DOT_PRECISION)
     elif taps_np is not None and _banded_seg(n, t, decim):
         # long input (a batched multi-block stream): window into segments and
         # run ONE batched matmul against the per-segment banded operator —
-        # identical math, and ~7x faster than XLA's conv lowering for
-        # [C, ~10^4-10^5] real streams on TPU
+        # identical math
         seg = _banded_seg(n, t, decim)
         c = x.shape[0]
         k = n // seg
@@ -363,7 +323,7 @@ def fir_apply_real_signal(x: jax.Array, taps: jax.Array, tail: jax.Array,
             wins = jnp.concatenate([base, carry], axis=-1)
         else:
             wins = base
-        y = jnp.matmul(wins, b, precision=_PREC)   # [C, K, seg//decim]
+        y = jnp.matmul(wins, b, precision=DOT_PRECISION)   # [C, K, seg//decim]
         y = y.reshape(c, n // decim)
     else:
         y = _conv_real(xx, taps if taps is not None
@@ -407,12 +367,12 @@ def fir_apply_real_signal_pair(x: jax.Array, tail: jax.Array,
             wins = jnp.concatenate([base, carry], axis=-1)
         else:
             wins = base
-        y = jnp.matmul(wins, b, precision=_PREC)   # [C, K, 2*seg//decim]
+        y = jnp.matmul(wins, b, precision=DOT_PRECISION)   # [C, K, 2*seg//decim]
         ms = seg // decim
         y_a = y[:, :, :ms].reshape(c, m)
         y_b = y[:, :, ms:].reshape(c, m)
     else:
-        y = jnp.matmul(xx, b, precision=_PREC)     # [C, 2M]
+        y = jnp.matmul(xx, b, precision=DOT_PRECISION)     # [C, 2M]
         y_a, y_b = y[:, :m], y[:, m:]
     new_tail = xx[:, -(t - 1):] if t > 1 else jnp.zeros((c, 0), x.dtype)
     return y_a, y_b, new_tail

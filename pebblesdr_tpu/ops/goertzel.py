@@ -6,10 +6,10 @@ Capability parity with Goertzel/GoertzelOOK (pebblelib/goertzel.{h,cpp}):
     attack/decay counters (goertzel.h:84-104),
   * DTMF / CTCSS tone tables (goertzel.h:194-277).
 
-TPU-first design: the reference runs a per-sample 2nd-order recurrence.  A
+Design: the reference runs a per-sample 2nd-order recurrence.  A
 Goertzel bin is just a dot product with exp(-j*2*pi*k*n/N), so we reshape the
 stream into [bins, N] frames and evaluate ALL detection bins for ALL frames as
-one matmul (MXU) — mathematically identical (including non-integer k), with no
+one matmul — mathematically identical (including non-integer k), with no
 sequential state at all.  Only the OOK debounce (a handful of per-frame
 counter updates) remains a scan, over frames rather than samples.
 """
@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from pebblesdr_tpu.core.block import pytree_dataclass, static_field
+from pebblesdr_tpu.core.precision import DOT_PRECISION
 
 # DTMF: (low Hz, high Hz) per key (goertzel.h:194-230 capability)
 DTMF_FREQS = {
@@ -53,7 +54,7 @@ def goertzel_power(x: jax.Array, basis: jax.Array):
     Normalized so a unit-amplitude tone exactly on bin gives power 1.0.
     """
     n = x.shape[-1]
-    resp = jnp.einsum("cfn,bn->cfb", x, basis, precision="highest") / n
+    resp = jnp.einsum("cfn,bn->cfb", x, basis, precision=DOT_PRECISION) / n
     return jnp.abs(resp) ** 2
 
 
@@ -208,7 +209,7 @@ def _raw_decision(cfg: OOKConfig, pm, pl, ph, peak, floor, avg, last):
 # Sub-audible tone squelch (the capability goertzel.h:232-277 ships tables
 # for).  Neighboring CTCSS tones sit 2.3-4 Hz apart at the low end, so a
 # one-block DFT (e.g. 21 ms audio block -> 47 Hz bins) cannot discriminate
-# them.  TPU-first reformulation: per block we take the tone's single-bin DFT
+# them.  Reformulation: per block we take the tone's single-bin DFT
 # response, de-rotate it by the block-start carrier phase (tracked in state,
 # advanced closed-form by 2*pi*f*blk/fs per block) and EWMA the COMPLEX
 # response — coherent integration with an exponential window.  The effective
@@ -267,9 +268,9 @@ def _ctcss_resp(cfg: CtcssConfig, audio: jax.Array):
         bre = jnp.asarray(cfg.basis_re)
         bim = jnp.asarray(cfg.basis_im)
     re = jnp.einsum("...n,bn->...b", audio, bre,
-                    precision=jax.lax.Precision.HIGHEST) / blk
+                    precision=DOT_PRECISION) / blk
     im = jnp.einsum("...n,bn->...b", audio, bim,
-                    precision=jax.lax.Precision.HIGHEST) / blk
+                    precision=DOT_PRECISION) / blk
     return jnp.stack([re, im], axis=-1)
 
 
@@ -322,7 +323,7 @@ def ctcss_update_many(cfg: CtcssConfig, state: CtcssState, audio: jax.Array):
         lmat_d = jnp.asarray(lmat.astype(np.float32))
         seed_d = jnp.asarray((float(a) ** (kk + 1)).astype(np.float32))
     flat = resp.reshape(k, -1)
-    iq = (jnp.matmul(lmat_d, flat, precision=jax.lax.Precision.HIGHEST)
+    iq = (jnp.matmul(lmat_d, flat, precision=DOT_PRECISION)
           .reshape(resp.shape) + seed_d[:, None, None, None] * state.iq[None])
     phase = jnp.mod(state.phase + k * dphi, 2.0 * np.pi)
     return (CtcssState(iq=iq[-1], phase=phase),

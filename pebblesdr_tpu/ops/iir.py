@@ -5,7 +5,7 @@ form 2, real & complex process) plus the first-order IIRs scattered through the
 reference (AM DC removal alpha=0.9999 demod_am.cpp, WFM de-emphasis, EWMA
 averagers).
 
-TPU-first design: a linear recurrence y[n] = a*y[n-1] + b[n] is associative —
+Design: a linear recurrence y[n] = a*y[n-1] + b[n] is associative —
 elements (a, b) compose as (a2*a1, a2*b1 + b2) — so instead of a per-sample
 loop we run jax.lax.associative_scan (O(log N) depth, fully vectorized).
 Biquads lift to the same form with 2x2 state matrices.  State crossing block
@@ -21,11 +21,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-# MXU precision for the audio-path banded/chunked matmuls.  HIGH (bf16_3x)
-# carries ~f32 dot-product accuracy at 3 MXU passes; HIGHEST (6 passes)
-# measured ~2x the matmul time for no audible gain (audio floor is already
-# set by the f32 signal path itself).  Same policy as ops/spectrum.py.
-_PREC = "high"
+from pebblesdr_tpu.core.precision import DOT_PRECISION
 
 
 # ------------------------------------------------------------- first order
@@ -59,7 +55,7 @@ def first_order_apply(y_prev: jax.Array, x: jax.Array, a, b):
         y[n] = a^n * (y_prev*a + cumsum(b*x[k] * a^{-k}))  — one cumsum
         (the a^{-k} weights grow by e^{N(1-a)}; used only below e^10);
       * otherwise (float32, N a chunk multiple): chunked matmul — per-chunk
-        zero-state response as one triangular [L, L] MXU matmul, cross-chunk
+        zero-state response as one triangular [L, L] matmul, cross-chunk
         handoff as a cumsum-style scan over N/L scalars (same scheme as
         biquad_apply).
     Fallback: associative scan (O(log N) steps).
@@ -86,8 +82,8 @@ def first_order_apply(y_prev: jax.Array, x: jax.Array, a, b):
         c = x.shape[0]
         k_n = n // chunk
         xc = x.reshape(c, k_n, chunk)
-        y_zs = jnp.matmul(xc, tt, precision=_PREC)       # [C, K, L]
-        d = jnp.matmul(xc, p_end, precision=_PREC)       # [C, K]
+        y_zs = jnp.matmul(xc, tt, precision=DOT_PRECISION)       # [C, K, L]
+        d = jnp.matmul(xc, p_end, precision=DOT_PRECISION)       # [C, K]
         # chunk-boundary handoff t_k = a^L t_{k-1} + d_k over K scalars
         _, t_end = _first_order_assoc(y_prev, d, a_l, 1.0)
         v_in = jnp.concatenate([y_prev[:, None], t_end[:, :-1]], axis=1)
@@ -219,10 +215,10 @@ def biquad_apply(state: jax.Array, x: jax.Array, coef: BiquadCoef):
     Complex inputs filter re/im independently (linear filter).
 
     Fast path (float32, N a multiple of the chunk size): chunked matmul —
-    per-chunk zero-state response as one lower-triangular [L, L] MXU matmul,
+    per-chunk zero-state response as one lower-triangular [L, L] matmul,
     cross-chunk state handoff as a tiny associative scan over N/L chunks with
-    the constant transfer matrix M^L.  O(N·L) MACs on the MXU beat the
-    O(N log N) 2x2-einsum associative scan in both compile time and runtime.
+    the constant transfer matrix M^L.  O(N·L) matmul MACs beat the
+    O(N log N) 2x2-einsum associative scan in compile time.
     Fallback: the associative matrix scan (exact same math).
     """
     if jnp.iscomplexobj(x):
@@ -238,28 +234,28 @@ def biquad_apply(state: jax.Array, x: jax.Array, coef: BiquadCoef):
     tt, p_end, inj, a_l = _biquad_chunk_tables(coef, chunk)
     k = n // chunk
     xc = x.reshape(c, k, chunk)
-    # zero-state response + zero-state chunk-end state, both MXU matmuls
-    w_zs = jnp.matmul(xc, tt, precision=_PREC)          # [C, K, L]
-    d = jnp.matmul(xc, p_end, precision=_PREC)          # [C, K, 2]
-    # cross-chunk handoff: t_k = M^L t_{k-1} + d_k, t_{-1} = state.
-    # This tiny 2x2 recurrence runs at HIGHEST precision: its error
-    # compounds multiplicatively across the K chunks of a long stream
-    # (high-Q poles near |z|=1 amplify it), and the [2,2] einsums are
-    # negligible FLOPs next to the [C, K, L] MXU matmuls above
-    hp = jax.lax.Precision.HIGHEST
-    d = d.at[:, 0, :].add(jnp.einsum("ij,cj->ci", a_l, state, precision=hp))
+    # zero-state response + zero-state chunk-end state, both matmuls
+    w_zs = jnp.matmul(xc, tt, precision=DOT_PRECISION)          # [C, K, L]
+    d = jnp.matmul(xc, p_end, precision=DOT_PRECISION)          # [C, K, 2]
+    # cross-chunk handoff: t_k = M^L t_{k-1} + d_k, t_{-1} = state.  The
+    # error of this tiny 2x2 recurrence compounds multiplicatively across
+    # the K chunks of a long stream (high-Q poles near |z|=1 amplify it)
+    d = d.at[:, 0, :].add(jnp.einsum("ij,cj->ci", a_l, state,
+                                     precision=DOT_PRECISION))
     mats = jnp.broadcast_to(a_l, (c, k, 2, 2))
 
     def combine(l, r):
         ml, bl = l
         mr, br = r
-        return (jnp.einsum("...ij,...jk->...ik", mr, ml, precision=hp),
-                jnp.einsum("...ij,...j->...i", mr, bl, precision=hp) + br)
+        return (jnp.einsum("...ij,...jk->...ik", mr, ml,
+                           precision=DOT_PRECISION),
+                jnp.einsum("...ij,...j->...i", mr, bl,
+                           precision=DOT_PRECISION) + br)
 
     _, t_end = jax.lax.associative_scan(combine, (mats, d), axis=1)  # [C,K,2]
     v_in = jnp.concatenate([state[:, None, :], t_end[:, :-1, :]], axis=1)
     w = (w_zs + jnp.einsum("nv,ckv->ckn", inj, v_in,
-                           precision=_PREC)).reshape(c, n)
+                           precision=DOT_PRECISION)).reshape(c, n)
     w1 = jnp.concatenate([state[:, :1], w[:, :-1]], axis=-1)
     w2 = jnp.concatenate([state[:, 1:2], w1[:, :-1]], axis=-1)
     y = coef.b0 * w + coef.b1 * w1 + coef.b2 * w2
@@ -275,14 +271,14 @@ def _biquad_apply_scan(state: jax.Array, x: jax.Array, coef: BiquadCoef):
     bvec = jnp.stack([x, jnp.zeros_like(x)], axis=-1)                  # [C,N,2]
     # fold carried state into first element: b0' = M @ v_prev + [x0, 0]
     bvec = bvec.at[:, 0, :].add(jnp.einsum("ij,cj->ci", m, state,
-                                           precision=_PREC))
+                                           precision=DOT_PRECISION))
 
     def combine(l, r):
         ml, bl = l
         mr, br = r
         return jnp.einsum("...ij,...jk->...ik", mr, ml,
-                          precision=_PREC), jnp.einsum(
-            "...ij,...j->...i", mr, bl) + br
+                          precision=DOT_PRECISION), jnp.einsum(
+            "...ij,...j->...i", mr, bl, precision=DOT_PRECISION) + br
 
     _, v = jax.lax.associative_scan(combine, (ms, bvec), axis=1)       # [C,N,2]
     w = v[..., 0]

@@ -1,14 +1,13 @@
 """Critically-sampled polyphase filterbank (PFB) channelizer.
 
 SURVEY §7.6 names two ways to turn one wideband capture into N channels:
-per-channel NCO mixers (what `parallel/channelizer.py` and the fused front
-end do — right for arbitrary tune frequencies) and the polyphase filterbank —
+per-channel NCO mixers (what `parallel/channelizer.py` and the Receiver's
+front end do — right for arbitrary tune frequencies) and the polyphase filterbank —
 right for a UNIFORM channel grid, where it replaces M independent
 mix+decimate chains with ONE prototype FIR + one M-point transform per
-output frame.  The transform is a dense M×M DFT matmul for small M (an
-MXU-sized dot) and a batched FFT + fixed phase for large M, i.e.
-O(T + log M) per channel-sample asymptotically, O(T + M) on the small-M
-MXU path.
+output frame.  The transform is a dense M×M DFT matmul for small M and a
+batched FFT + fixed phase for large M, i.e. O(T + log M) per channel-sample
+asymptotically, O(T + M) on the small-M matmul path.
 
 Math (standard identity, verified bit-close in tests/test_pfb.py): with
 sampling instants s_k = k·M + M − 1 (frame k ends after M fresh samples),
@@ -21,8 +20,8 @@ downconverted to baseband and decimated by M, with a fixed per-channel
 phase — computed for ALL M channels at once as polyphase branches + one
 M-point DFT matrix dot per frame.
 
-TPU mapping: the branch filter is ONE einsum over a [K, T, M] strided window
-stack (an MXU-sized dot: T taps × M branches per output frame), and the
+Device mapping: the branch filter is ONE einsum over a [K, T, M] strided
+window stack (T taps × M branches per output frame), and the
 M-point IFFT batches over frames.  Streaming state is the last T·M−M input
 samples — the same carry-tail convention as every other stream op here.
 
@@ -30,7 +29,7 @@ The prototype is a Kaiser lowpass at cutoff fs/(2M) (one channel's Nyquist),
 designed host-side in float64 like ops.fir.
 
 Reference capability analog: none (the reference tunes one channel at a
-time); this is the TPU-first widening of `CDownConvert`
+time); this is the accelerator widening of `CDownConvert`
 (pebblelib/downconvert.cpp:257-325) to a full uniform grid.
 """
 
@@ -42,6 +41,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from scipy import signal as sps
+
+from pebblesdr_tpu.core.precision import DOT_PRECISION
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,11 +143,10 @@ def apply(p: PfbPlan, state: jax.Array, x: jax.Array):
     frames = ext2[:, idx_k, :].reshape(r, k_out, t, m)
     hb = p.h.reshape(t, m)[::-1, ::-1].copy()         # hb[t', p'] = h[n]
     v = jnp.einsum("rktm,tm->rkm", frames, jnp.asarray(hb, jnp.float32),
-                   precision="high")
+                   precision=DOT_PRECISION)
     # y_m[k] = sum_{p'} v_{p'}[k] e^{+2πi·m·(M−1−p')/M}
     #        = e^{+2πi·m·(M−1)/M} · FFT_m(v[k]).
-    # Small M: one [K, M] @ [M, M] DFT-matrix dot rides the MXU (measured at
-    # parity-or-better vs jnp.fft at our display shapes).  Large M: the dense
+    # Small M: one [K, M] @ [M, M] DFT-matrix dot.  Large M: the dense
     # matrix is O(M²) per frame in time and memory, so switch to the batched
     # FFT + fixed per-channel phase — O(M log M) per frame.
     if m <= 128:
@@ -154,7 +154,7 @@ def apply(p: PfbPlan, state: jax.Array, x: jax.Array):
         dft = np.exp(2j * np.pi * np.outer(m - 1 - pp, pp) / m
                      ).astype(np.complex64)
         y = jnp.einsum("rkm,mc->rck", v, jnp.asarray(dft),
-                       precision="highest")               # [R, M, K]
+                       precision=DOT_PRECISION)               # [R, M, K]
     else:
         phase = np.exp(2j * np.pi * np.arange(m) * (m - 1) / m
                        ).astype(np.complex64)

@@ -5,7 +5,7 @@ Blackman-Harris windowed-sinc interpolation with per-output fractional phase
 (Init :87-137, Resample :146-187), the final audio-rate stage of the chain
 (receiver.cpp:998-1004).
 
-TPU-first design: the reference walks a float time accumulator through the
+Design: the reference walks a float time accumulator through the
 input doing a 28-tap MAC per output against a 280k-entry quantized sinc table
 (flagged as the most expensive stage, receiver.cpp:998).  Here the rate ratio
 is static per chain config, so the whole geometry is computed at build time:
@@ -31,12 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from pebblesdr_tpu.core import windows as win
-
-# MXU precision for the audio-path banded/chunked matmuls.  HIGH (bf16_3x)
-# carries ~f32 dot-product accuracy at 3 MXU passes; HIGHEST (6 passes)
-# measured ~2x the matmul time for no audible gain (audio floor is already
-# set by the f32 signal path itself).  Same policy as ops/spectrum.py.
-_PREC = "high"
+from pebblesdr_tpu.core.precision import DOT_PRECISION
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +43,7 @@ class ResamplePlan:
     taps: int
     gather_idx: np.ndarray  # [M, K] int32 indices into tail-extended input
     coefs: np.ndarray       # [M, K] float32
-    dense: np.ndarray = None  # [K + N_in, M] banded matrix (MXU fast path)
+    dense: np.ndarray = None  # [K + N_in, M] banded matrix (matmul path)
 
 
 def output_block(in_rate: int, out_rate: int, n_in: int) -> int:
@@ -90,8 +85,8 @@ def plan(in_rate: int, out_rate: int, n_in: int, taps: int = 32) -> ResamplePlan
 
     gather = (idx[:, None] - k + 1 + j[None, :].astype(np.int64)) + k  # tail offset
     assert gather.min() >= 0 and gather.max() < n_in + k
-    # dense banded operator for the MXU path: y = x_ext @ dense
-    # (gathers lower poorly on TPU; a [L, M] matmul is microseconds)
+    # dense banded operator: y = x_ext @ dense (one [L, M] matmul in place
+    # of a per-output gather)
     dense = np.zeros((n_in + k, m_out), np.float32)
     for mm in range(m_out):
         dense[gather[mm], mm] = kern[mm]
@@ -109,7 +104,7 @@ _dense_cache: dict[int, jax.Array] = {}
 
 def _dense_dev(p: ResamplePlan) -> jax.Array:
     """Banded operator as a cached DEVICE array (lifted as a jit parameter
-    instead of an HLO literal — measurably faster on TPU).
+    instead of an HLO literal).
 
     Keyed by the plan GEOMETRY, never id(): a garbage-collected plan's id
     can be reused by a different plan's array, silently serving the wrong
@@ -124,17 +119,17 @@ def _dense_dev(p: ResamplePlan) -> jax.Array:
 def apply(p: ResamplePlan, state: jax.Array, x: jax.Array):
     """x: [C, N_in] (real or complex) -> (state', y [C, N_out]).
 
-    MXU path: the whole resampler is one [C, K+N] x [K+N, M] matmul against
+    Matmul path: the whole resampler is one [C, K+N] x [K+N, M] matmul against
     the static banded operator (identical math to the gather+MAC form).
     """
     xx = jnp.concatenate([state, x], axis=-1)            # [C, K+N]
     dense = _dense_dev(p)
     if jnp.iscomplexobj(xx):
         y = jax.lax.complex(
-            jnp.matmul(xx.real, dense, precision=_PREC),
-            jnp.matmul(xx.imag, dense, precision=_PREC))
+            jnp.matmul(xx.real, dense, precision=DOT_PRECISION),
+            jnp.matmul(xx.imag, dense, precision=DOT_PRECISION))
     else:
-        y = jnp.matmul(xx, dense, precision=_PREC)
+        y = jnp.matmul(xx, dense, precision=DOT_PRECISION)
     new_state = xx[:, -p.taps:]
     return new_state, y.astype(x.dtype)
 
@@ -166,10 +161,10 @@ def apply_many(p: ResamplePlan, state: jax.Array, x_cat: jax.Array):
     dense = _dense_dev(p)
     if jnp.iscomplexobj(ext):
         y = jax.lax.complex(
-            jnp.matmul(wins.real, dense, precision=_PREC),
-            jnp.matmul(wins.imag, dense, precision=_PREC))
+            jnp.matmul(wins.real, dense, precision=DOT_PRECISION),
+            jnp.matmul(wins.imag, dense, precision=DOT_PRECISION))
     else:
-        y = jnp.matmul(wins, dense, precision=_PREC)  # [C, K, M]
+        y = jnp.matmul(wins, dense, precision=DOT_PRECISION)  # [C, K, M]
     y = y.reshape(c, k * p.n_out)
     return ext[:, -p.taps:], y.astype(x_cat.dtype)
 

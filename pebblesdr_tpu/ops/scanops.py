@@ -10,7 +10,7 @@ Capability parity:
   * IQBalance (application/iqbalance.cpp:65-87): gain*I, Q + phase*I, plus the
     N4HY/dttsp adaptive image-reject iteration (mu=0.0025).
 
-TPU-first notes: the EWMA inside the noise blanker is a linear recurrence ->
+Design notes: the EWMA inside the noise blanker is a linear recurrence ->
 associative scan; blanking windows use a dilated mask instead of per-sample
 countdown.  The LMS filter is genuinely sequential per weight update; we run a
 *block LMS* variant (weights frozen within a sub-block of `update_every`
@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from pebblesdr_tpu.core.block import pytree_dataclass
+from pebblesdr_tpu.core.precision import DOT_PRECISION
 from pebblesdr_tpu.ops.iir import first_order_apply
 
 
@@ -86,15 +87,14 @@ def noise_blanker_chunked(state: NoiseBlankerChunkedState, x: jax.Array,
                           threshold: float = 3.3, blank_width: int = 7,
                           alpha: float = 0.001, chunk: int = 512,
                           mode: str = "blank"):
-    """The fused-front noise blanker semantics (the twin the Pallas kernel
-    implements bit-for-bit; see pallas_kernels._front_kernel):
+    """The front end's noise blanker (ops.front via Receiver._front):
 
       * POWER-domain detection: the tracked average is the EWMA of |x|^2
         (an RMS envelope) and the spike test |x|^2 > threshold^2 * avg2 —
         algebraically |x| > threshold*RMS.  (Deviation from the reference's
         mean-|x| average, noiseblanker.cpp:45-60: RMS >= mean, so detection
         is marginally more conservative on impulsive floors — and the
-        full-rate sqrt pass disappears from the kernel);
+        full-rate sqrt pass disappears);
       * the average is piecewise-constant per `chunk` samples and
         EWMA-updated from chunk means — the same chunked-EWMA recast the DC
         blocker uses (dc_removal_chunked), so no per-sample recurrence;
@@ -113,7 +113,7 @@ def noise_blanker_chunked(state: NoiseBlankerChunkedState, x: jax.Array,
     mag2 = x.real * x.real + x.imag * x.imag
     means = jnp.mean(mag2.reshape(c, nchunk, chunk), axis=2)     # [C, J]
     a_c = (1.0 - alpha) ** chunk
-    # closed-form chunked EWMA (same as the front kernel's DC recurrence)
+    # closed-form chunked EWMA (same recast as the chunked DC blocker)
     jj = np.arange(nchunk)
     lmat = np.where(jj[:, None] >= jj[None, :],
                     (1.0 - a_c) * a_c ** (jj[:, None] - jj[None, :]), 0.0)
@@ -121,7 +121,7 @@ def noise_blanker_chunked(state: NoiseBlankerChunkedState, x: jax.Array,
         lmat_d = jnp.asarray(lmat.astype(np.float32))
         seed_d = jnp.asarray((a_c ** (jj + 1)).astype(np.float32))
     avgs = (jnp.einsum("jk,ck->cj", lmat_d, means,
-                       precision=jax.lax.Precision.HIGHEST)
+                       precision=DOT_PRECISION)
             + seed_d[None, :] * state.mag_avg[:, None])          # [C, J]
     # chunk j's samples use the average entering the chunk (end of j-1)
     avg_in = jnp.concatenate([state.mag_avg[:, None], avgs[:, :-1]], axis=1)
@@ -244,9 +244,10 @@ def anf(state: ANFState, x: jax.Array, rate: float = ANF_RATE,
         seg = jax.lax.dynamic_slice_in_dim(full, start, update_every + taps - 1, axis=-1)
         frames = _frames(seg, taps)                     # [C, U, taps]
         xblk = jax.lax.dynamic_slice_in_dim(x, start, update_every, axis=-1)
-        pred = jnp.einsum("cut,ct->cu", frames, w)
+        pred = jnp.einsum("cut,ct->cu", frames, w, precision=DOT_PRECISION)
         err = xblk - pred
-        grad = jnp.einsum("cu,cut->ct", err, frames) / update_every
+        grad = jnp.einsum("cu,cut->ct", err, frames,
+                          precision=DOT_PRECISION) / update_every
         w2 = leak * w + 2.0 * rate * grad
         return w2, pred
 

@@ -23,6 +23,7 @@ import numpy as np
 from pebblesdr_tpu.core import db as dbu
 from pebblesdr_tpu.core import windows as win
 from pebblesdr_tpu.core.block import pytree_dataclass
+from pebblesdr_tpu.core.precision import DOT_PRECISION
 
 MIN_BINS = 2048   # fft.h:21
 MAX_BINS = 65535  # fft.h:22
@@ -35,18 +36,17 @@ def make_window(n_bins: int, kind: win.WindowType = win.WindowType.BLACKMAN_HARR
     return np.asarray(w, np.float32), win.coherent_gain(w)
 
 
-# DFT-by-matmul: XLA's TPU FFT lowering is slow for our [C, 1-4k] shapes
-# (~1.7 ms for [64, 2048]); the same transform as two real matmuls rides the
-# MXU in tens of microseconds.  Matrices cached per size (fp32, fftshifted
-# row order so no separate shift pass).
+# DFT-by-matmul for the display/S-meter sizes (<= 4096 bins): the transform
+# as real matmuls against cached matrices (fp32, fftshifted row order so no
+# separate shift pass).  Larger sizes take jnp.fft.
 _DFT_MAX_MATMUL = 4096
 _dft_cache: dict[int, tuple[jax.Array, jax.Array]] = {}
 
 
 def _dft_mats(n: int) -> tuple[jax.Array, jax.Array]:
     """Cached DEVICE arrays: closure-captured concrete arrays are lifted as
-    implicit jit parameters, ~1.7x faster on the TPU than the same matrices
-    baked into the HLO as 16 MB literals."""
+    implicit jit parameters instead of being baked into the HLO as
+    multi-MB literals."""
     if n not in _dft_cache:
         k = np.arange(n)
         shifted_rows = np.fft.fftshift(k)  # output bin order -f..+f
@@ -60,28 +60,22 @@ def _dft_mats(n: int) -> tuple[jax.Array, jax.Array]:
 
 
 def _shifted_power(xw: jax.Array) -> jax.Array:
-    """|fftshift(fft(xw))|^2 for [C, N] complex64, via MXU matmuls."""
+    """|fftshift(fft(xw))|^2 for [C, N] complex64, via DFT matmuls."""
     n = xw.shape[-1]
     if n > _DFT_MAX_MATMUL:
         spec = jnp.fft.fftshift(jnp.fft.fft(xw, axis=-1), axes=-1)
         return spec.real**2 + spec.imag**2
     fr, fi = _dft_mats(n)
     xr, xi = xw.real, xw.imag
-    # f32 matmul precision: the TPU MXU defaults f32 inputs to bf16
-    # passes, which raises the display/S-meter noise floor from the
-    # signal's -120 dB to ~-48 dB (measured on hardware) — the squelch
-    # SNR estimate then reads ~30 dB low.  HIGH (bf16_3x) restores
-    # ~f32 accuracy at 3 MXU passes (HIGHEST's 6 passes doubled the
-    # whole-chain block time for no further measurable floor gain).
-    p = jax.lax.Precision.HIGH
-    # Karatsuba complex product: 3 MXU products instead of 4 (the zoomed
-    # transform runs EVERY block for the S-meter/squelch — 25% of the
-    # dispatch's dominant tail matmul FLOPs).  si = t3 - t1 - t2 with
-    # t3 = (xr+xi)(fr+fi); the cancellation stays within the bf16_3x
-    # error budget (floor re-verified by tools/tpu_parity.py).
-    t1 = jnp.matmul(xr, fr, precision=p)
-    t2 = jnp.matmul(xi, fi, precision=p)
-    t3 = jnp.matmul(xr + xi, fr + fi, precision=p)
+    # true-f32 products (core.precision): a reduced-precision product
+    # lifts the display/S-meter noise floor by tens of dB, and the
+    # Karatsuba form below cancels terms
+    # Karatsuba complex product: 3 real products instead of 4 (the zoomed
+    # transform runs EVERY block for the S-meter/squelch).
+    # si = t3 - t1 - t2 with t3 = (xr+xi)(fr+fi)
+    t1 = jnp.matmul(xr, fr, precision=DOT_PRECISION)
+    t2 = jnp.matmul(xi, fi, precision=DOT_PRECISION)
+    t3 = jnp.matmul(xr + xi, fr + fi, precision=DOT_PRECISION)
     sr = t1 - t2
     si = t3 - t1 - t2
     return sr * sr + si * si

@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import scipy.signal
 
+from pebblesdr_tpu.core.precision import DOT_PRECISION
 from pebblesdr_tpu.ops import iir as iir_mod
 
 
@@ -46,7 +47,8 @@ def moving_avg(x: jax.Array, window: int, tail: jax.Array | None = None,
         lhs = ext[:, None, :]
         rhs = w[None, None, :]
         y = jax.lax.conv_general_dilated(
-            lhs, rhs, (1,), "VALID", dimension_numbers=("NCH", "OIH", "NCH"))[:, 0]
+            lhs, rhs, (1,), "VALID", dimension_numbers=("NCH", "OIH", "NCH"),
+            precision=DOT_PRECISION)[:, 0]
     return y, ext[:, -(window - 1):]
 
 

@@ -1,8 +1,8 @@
 """comm: the single collective-communication surface of the framework.
 
 SURVEY.md §2.6/§5: the reference's only "communication" is QSemaphore/QMutex
-plus TCP sample streaming; the TPU framework instead routes everything through
-XLA collectives on ICI (intra-slice) / DCN (cross-host), wrapped here so the
+plus TCP sample streaming; this framework instead routes everything through
+XLA collectives (NVLink within a host, the network across hosts), wrapped here so the
 rest of the code never calls jax.lax primitives directly:
 
   ring_shift_right / ring_shift_left — ppermute neighbor exchange (halo

@@ -1,7 +1,7 @@
 """Device mesh construction and sharding helpers.
 
 The reference has no distributed layer (SURVEY.md §2.6: single Qt process,
-QSemaphore/QMutex); this module *introduces* it TPU-natively: one mesh with
+QSemaphore/QMutex); this module *introduces* it: one mesh with
 named axes
 
   channel — DP analog: independent demod chains sharded as a pure map

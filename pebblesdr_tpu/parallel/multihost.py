@@ -1,15 +1,15 @@
 """Multi-host execution: jax.distributed bring-up + DCN input distribution.
 
 BASELINE.json config #5: a wideband capture split across N hosts, each host
-feeding its local devices, time-block sharded with ICI halo exchange inside a
+feeding its local devices, time-block sharded with NVLink halo exchange inside a
 slice and DCN carrying the host-boundary halos.  This module provides the
 host-side plumbing; the device-side sharding lives in parallel.time_shard /
 parallel.channelizer and is host-count agnostic (shard_map over the global
 mesh — XLA routes the ppermute hop that crosses hosts over DCN
 automatically).
 
-Without pod hardware this code path is exercised on forced-host CPU meshes
-(tests) and via __graft_entry__.dryrun_multichip; on a real pod only
+Without multi-host hardware this code path is exercised on forced-host CPU meshes
+(tests) and via __graft_entry__.dryrun_multichip; on real hosts only
 `initialize()` differs (coordinator address from the launcher).
 """
 
@@ -33,7 +33,7 @@ def initialize(coordinator: str | None = None, num_processes: int | None = None,
 
 def global_mesh(channel: int | None = None, time: int | None = None):
     """Mesh over ALL devices (across hosts).  Defaults: time = devices per
-    host (so time halos ride ICI), channel = number of hosts (channel
+    host (so time halos ride NVLink), channel = number of hosts (channel
     parallelism crosses DCN only at input distribution, never per-block)."""
     n = len(jax.devices())
     per_host = len(jax.local_devices())

@@ -9,7 +9,7 @@ parallel/time_shard.py).  Each shard then holds all M channels for ITS time
 span; the per-station tail Receiver (fine-tune mix -> FastFIR -> AGC ->
 demod -> resample at the LOW channel rate) wants whole time streams per
 channel, so one sharding constraint re-lays the (much smaller) channel-rate
-streams channel-sharded and XLA inserts the all-to-all over ICI.
+streams channel-sharded and XLA inserts the all-to-all over NVLink.
 
 Streaming-exact vs the single-chip chain.pfb_bank.PfbBankReceiver
 (tests/test_pfb_bank.py validates on an 8-device CPU mesh).

@@ -2,7 +2,7 @@
 
 The reference's only concurrency is pipeline parallelism between Qt threads
 (device producer -> consumer chain -> audio output; pebblelib/producerconsumer.h:18-96).
-This module is its TPU-native generalization: the receive chain is split into
+This module is its device-mesh generalization: the receive chain is split into
 S stages, stage s lives on device s of a ``stage`` mesh axis, and every tick
 each device runs its stage on the block it holds, then hands the result to
 its right neighbour with ONE ``lax.ppermute`` (the double-buffered
@@ -22,7 +22,7 @@ de-replicated states so back-to-back runs are streaming-exact.
 Validated on the forced 8-device CPU mesh (tests/test_pipeline.py): pipelined
 output == sequential composition bit-for-bit, including carried state across
 run() calls.  On real hardware the win appears when S chips each hold one
-stage of a chain too deep for one chip's VMEM/HBM working set.
+stage of a chain too deep for one card's memory working set.
 """
 
 from __future__ import annotations
@@ -178,21 +178,13 @@ def am_chain_stages(rx, params) -> tuple[list[Stage], tuple]:
     Returns (stages, init_states).  Payload layout: complex [C, n] rides as
     packed [2C, n] float32 planes; the final stage emits real audio [C, blk].
 
-    The stage fns are the STAGED ops (dc_removal_chunked / mixer.mix /
-    decimator.apply), so rx must be built with ``use_pallas=False`` — the
-    fused Pallas front end carries its state in the lane-packed [1, 2C] /
-    [d_rows, 2C] layout, which these stage fns cannot consume.
+    The stage fns are the Receiver's own front-end ops (dc_removal_chunked /
+    mixer.mix / front.decimate_composed) on its own state layout.
     """
     from pebblesdr_tpu.demod import am as am_mod
-    from pebblesdr_tpu.ops import agc, decimator, fastfir, iir, mixer, \
-        resampler
+    from pebblesdr_tpu.ops import (agc, decimator, fastfir, front, iir, mixer,
+                                   resampler)
 
-    if rx.use_pallas:
-        raise ValueError(
-            "am_chain_stages needs the staged front-end state layout; "
-            "construct the Receiver with use_pallas=False (the fused Pallas "
-            "front end keeps its dc/decim state lane-packed, which the "
-            "per-stage fns cannot consume)")
     c = rx.cfg.channels
     n = rx.cfg.frames_per_buffer
     blk = rx.blk
@@ -201,12 +193,15 @@ def am_chain_stages(rx, params) -> tuple[list[Stage], tuple]:
     def s_front(state, b):
         dc, mx = state
         x = _unpack(b)
-        dc, x = iir.dc_removal_chunked(dc, x, alpha=0.9999)
+        dc, x = iir.dc_removal_chunked(dc, x, alpha=front.DC_ALPHA)
         mx, x = mixer.mix(mx, x, params.tune_hi, params.tune_lo)
         return (dc, mx), _pack(x)
 
+    h = decimator.compose_response(rx.plan)
+
     def s_decim(state, b):
-        state, x = decimator.apply(rx.plan, state, _unpack(b))
+        state, x = front.decimate_composed(state, _unpack(b), h,
+                                           rx.plan.factor)
         return state, _pack(x)
 
     def s_bandpass(state, b):

@@ -1,8 +1,8 @@
 """Scaling measurement + accounting for the sharded chain.
 
-BASELINE.md targets >=85% multi-host scaling efficiency.  Real pod hardware
-is unavailable in this environment, so the scaling story is built from
-three honest, reproducible measurements (VERDICT r4 weak 3):
+BASELINE.md targets >=85% multi-host scaling efficiency.  The scaling story
+is built from three reproducible measurements that need no multi-card
+hardware:
 
 1. **Structural zero-collective proof for the channel axis** — the
    channel-parallel demod chains are embarrassingly parallel; we INSPECT
@@ -14,8 +14,8 @@ three honest, reproducible measurements (VERDICT r4 weak 3):
 2. **Halo accounting for the time axis** — the ppermute halos are the only
    cross-device traffic; their bytes per block are static (filter tails +
    overlap-save state + mix phase scalars).  halo_share = halo_bytes /
-   input_bytes bounds the communication fraction; with ICI bandwidth ~2
-   orders above the per-sample compute intensity of the front end, a halo
+   input_bytes bounds the communication fraction; with NVLink bandwidth
+   far above the per-sample compute intensity of the front end, a halo
    share <= 15% implies >= 85% scaling on the time axis.
 3. **Measured wall-clock efficiency up to the host's physical cores** —
    forced-CPU "devices" beyond `nproc` timeshare cores, so wall-clock

@@ -22,8 +22,9 @@ import jax.numpy as jnp
 import numpy as np
 from jax import lax
 
+from pebblesdr_tpu.core.precision import DOT_PRECISION
 from pebblesdr_tpu.ops import decimator as decim_mod
-from pebblesdr_tpu.ops import fir
+from pebblesdr_tpu.ops import fir, front
 
 
 def left_halo(x_local: jax.Array, halo: int, axis_name: str) -> jax.Array:
@@ -167,7 +168,7 @@ def sharded_dc_chunks(x_local: jax.Array, dc0: jax.Array, alpha: float,
     lm = np.where(kk[:, None] >= kk[None, :],
                   (1.0 - a) * a ** (kk[:, None] - kk[None, :]), 0.0
                   ).astype(np.float32)
-    m_all = (means @ jnp.asarray(lm.T)
+    m_all = (jnp.matmul(means, jnp.asarray(lm.T), precision=DOT_PRECISION)
              + jnp.asarray((a ** (kk + 1)).astype(np.float32))[None, :]
              * m_start[:, None])                                  # [C, Kl]
     coef_t = jnp.power(big_a, (tt - 1 - j).astype(jnp.float32))
@@ -193,14 +194,11 @@ def sharded_composed_front(x_local: jax.Array, phase0: jax.Array, f_hi, f_lo,
                            axis_name: str):
     """Time-sharded NCO mix + WHOLE decimator cascade in one step, using the
     noble-identity composed response (ops.decimator.compose_response) — the
-    sharded twin of the single-chip fused front end.
+    sharded twin of the Receiver's front end (ops.front).
 
     Exchanges ONE halo of D = group-delay samples (post-mix) instead of one
     per cascade stage: 1 ppermute + 1 all_gather per block total.  The local
-    filtering runs fir.fir_apply_real_signal's SEGMENTED banded-matmul path:
-    a single dense [D+Nl, Nl/F] Toeplitz is >90% zeros at realistic Nl (its
-    MACs grow as Nl^2/F), while the per-segment banded form keeps the band
-    fraction fixed — the same fix as the fused kernel's band-tiled dot.
+    filtering is ops.front.decimate_composed with the halo as its history.
 
     x_local: [C, Nl] complex64 (Nl % factor == 0); carry: [C, D] complex64 —
     the previous global block's last D post-mix samples (same on all shards);
@@ -208,8 +206,8 @@ def sharded_composed_front(x_local: jax.Array, phase0: jax.Array, f_hi, f_lo,
     ops.decimator.compose_response.
 
     Returns (new_phase [C], new_carry [C, D], y_local [C, Nl//factor]).
-    Bit-compatible with mixer.mix + decimator.apply on the unsharded stream
-    (same composed-vs-staged float32 tolerance as the fused front kernel).
+    Matches mixer.mix + decimator.apply on the unsharded stream to float32
+    rounding.
     """
     d = carry.shape[-1]
     my_idx = lax.axis_index(axis_name)
@@ -218,12 +216,7 @@ def sharded_composed_front(x_local: jax.Array, phase0: jax.Array, f_hi, f_lo,
 
     neighbor = left_halo(z_local, d, axis_name)
     lead = jnp.where(my_idx == 0, carry, neighbor)
-    h32 = np.asarray(h_np, np.float32)
-    yr, _ = fir.fir_apply_real_signal(z_local.real, None, lead.real,
-                                      decim=factor, taps_np=h32)
-    yi, _ = fir.fir_apply_real_signal(z_local.imag, None, lead.imag,
-                                      decim=factor, taps_np=h32)
-    y = lax.complex(yr, yi).astype(jnp.complex64)
+    _, y = front.decimate_composed(lead, z_local, np.asarray(h_np), factor)
 
     new_carry = _last_shard_tail(z_local, d, axis_name)
     return new_phase, new_carry, y

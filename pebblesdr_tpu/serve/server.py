@@ -29,6 +29,9 @@ def main(argv=None) -> int:
     p.add_argument("--block", type=int, default=16384)
     args = p.parse_args(argv)
 
+    from pebblesdr_tpu.utils import compile_cache
+
+    compile_cache.enable()
     kwargs = {}
     if args.source == "file":
         if not args.path:

@@ -38,12 +38,12 @@ assert mesh.shape["channel"] == nproc and mesh.shape["time"] == 4
 fs, n = 512_000, 8192
 c_total = 2 * nproc                     # 2 demod channels per host
 cfg = ReceiverConfig(sample_rate=fs, frames_per_buffer=n, channels=c_total,
-                     mode=DemodMode.AM, agc_mode="off", use_pallas=False)
+                     mode=DemodMode.AM, agc_mode="off")
 rx = Receiver(cfg)
 tunes = np.linspace(-150_000.0, 150_000.0, c_total)
 params = rx.default_params(tunes)
 step = channelizer.build_sharded_step(rx, mesh)
-state = mesh_mod.shard_state(channelizer.init_state(rx), mesh)
+state = mesh_mod.shard_state(rx.init_state(), mesh)
 
 # one wideband capture, every host generates the same signal deterministically
 t = np.arange(2 * n) / fs
@@ -68,7 +68,7 @@ got = np.concatenate(audio_local, axis=-1)
 
 # unsharded reference for this host's channels
 cfg_ref = ReceiverConfig(sample_rate=fs, frames_per_buffer=n, channels=2,
-                         mode=DemodMode.AM, agc_mode="off", use_pallas=False)
+                         mode=DemodMode.AM, agc_mode="off")
 rx_ref = Receiver(cfg_ref)
 params_ref = rx_ref.default_params(tunes[my_lo:my_hi])
 st_ref = rx_ref.init_state()
@@ -118,8 +118,7 @@ assert eff > 0.3, (t_local, t_shard)  # overhead bound on a shared-core host
 # sharded step (time-sharded composite front + channel-sharded pilot/
 # demux tail) must run distributed and produce finite stereo audio
 cfg_w = ReceiverConfig(sample_rate=fs, frames_per_buffer=n,
-                       channels=c_total, mode=DemodMode.FMS,
-                       use_pallas=False)
+                       channels=c_total, mode=DemodMode.FMS)
 rx_w = Receiver(cfg_w)
 params_w = rx_w.default_params(np.full(c_total, 100_000.0))
 tw = np.arange(n) / fs
@@ -128,8 +127,8 @@ comp_w = (0.45 * np.sin(2 * np.pi * 1000.0 * tw)
 ph_w = 2 * np.pi * np.cumsum(75000.0 * comp_w) / fs
 iq_w = (0.5 * np.exp(1j * (2 * np.pi * 100_000.0 * tw + ph_w))
         ).astype(np.complex64)
-step_w = channelizer.build_sharded_step(rx_w, mesh, fused=False)
-state_w = mesh_mod.shard_state(channelizer.init_state(rx_w), mesh)
+step_w = channelizer.build_sharded_step(rx_w, mesh)
+state_w = mesh_mod.shard_state(rx_w.init_state(), mesh)
 blk_w = np.broadcast_to(iq_w, (2, n)).copy()
 for _ in range(2):
     iq_gw = jax.make_array_from_process_local_data(bsh, blk_w, (c_total, n))

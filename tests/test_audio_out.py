@@ -67,7 +67,7 @@ class TestPortAudioOutput:
 
     def test_device_sink(self):
         """With libportaudio installed: open/write/close the default stream.
-        Without (headless TPU hosts): a clear RuntimeError naming the
+        Without (headless hosts): a clear RuntimeError naming the
         alternatives — never a silent no-op."""
         import ctypes.util
 

@@ -1,6 +1,6 @@
 """step_many batched (straight-line, no-scan) path == sequential step()
 for every supported mode, including spectra/S-meter/squelch and carry state
-(CPU, fused front kernel in interpret mode)."""
+(the XLA front end over the whole dispatch vs one block at a time)."""
 
 import functools
 
@@ -25,7 +25,8 @@ def _signal():
     return iq[None, :] * np.ones((C, 1), np.float32)
 
 
-@pytest.mark.parametrize("mode", [DemodMode.AM, DemodMode.USB, DemodMode.LSB])
+@pytest.mark.parametrize("mode", [DemodMode.AM, DemodMode.USB, DemodMode.LSB,
+                                  DemodMode.CWU, DemodMode.DSB])
 def test_batched_matches_sequential(mode):
     iq = _signal()
     xr2 = np.ascontiguousarray(iq.real.astype(np.float32).T)   # [K*N, C]
@@ -33,9 +34,9 @@ def test_batched_matches_sequential(mode):
     blocks_tm = np.stack([xr2.reshape(K, N, C), xi2.reshape(K, N, C)], axis=1)
 
     cfg = ReceiverConfig(sample_rate=FS, frames_per_buffer=N, channels=C,
-                         mode=mode, use_pallas=True, batched_many=True)
+                         mode=mode, batched_many=True)
     rx = Receiver(cfg)
-    assert rx.use_pallas
+    assert rx.batched_capable
     params = rx.default_params(250_000.0)
 
     st = rx.init_state()
@@ -91,8 +92,7 @@ def test_batched_fm_matches_sequential(mode):
     x_pk = np.concatenate([xr2, xi2], axis=1)                  # [K*N, 2C]
 
     cfg = ReceiverConfig(sample_rate=FS, frames_per_buffer=N, channels=C,
-                         mode=mode, use_pallas=True, batched_many=True,
-                         batched_wfm=True)
+                         mode=mode, batched_many=True, batched_wfm=True)
     rx = Receiver(cfg)
     params = rx.default_params(250_000.0)
 
@@ -125,9 +125,9 @@ def test_batched_fm_matches_sequential(mode):
                                      (DemodMode.FMS, False),
                                      (DemodMode.FMS, True)])
 def test_batched_time_fold_matches_sequential(mode, hq):
-    """K=4 blocks at C=2 engage the virtual-channel time-fold (fold=4) in
-    the batched front; audio must still match sequential step() calls —
-    including the wfm_hq (>=400 kHz composite) geometry."""
+    """K=4 blocks at C=2 through the batched front; audio and display
+    spectra must match sequential step() calls — including the wfm_hq
+    (>=400 kHz composite) geometry."""
     kf = 4
     t = np.arange(kf * N) / FS
     if mode == DemodMode.FMS:
@@ -151,8 +151,8 @@ def test_batched_time_fold_matches_sequential(mode, hq):
     x_pk = np.concatenate([xr2, xi2], axis=1)                  # [K*N, 2C]
 
     cfg = ReceiverConfig(sample_rate=FS, frames_per_buffer=N, channels=C,
-                         mode=mode, use_pallas=True, batched_many=True,
-                         agc_mode="off", wfm_hq=hq)
+                         mode=mode, batched_many=True, agc_mode="off",
+                         wfm_hq=hq)
     rx = Receiver(cfg)
     params = rx.default_params(250_000.0)
 
@@ -177,16 +177,6 @@ def test_batched_time_fold_matches_sequential(mode, hq):
     # rounding alone wiggles ~0.4 dB; an ordering bug shows up as ~20 dB
     spec_tol = 0.1 if mode == DemodMode.AM else 1.0
     assert np.abs(spec_seq - np.asarray(ob["spectrum"])).max() < spec_tol
-
-    # pre-FOLDED entry plane (what feeders ship at small C): same result
-    from pebblesdr_tpu.ops import pallas_kernels as pk
-    x_folded = pk.fold_plane_np(x_pk, 4)
-    st3 = rx.init_state()
-    st3, of = jax.jit(functools.partial(rx._step_many_impl, spectra=True))(
-        st3, params, jnp.asarray(x_folded))
-    audio_f = np.moveaxis(np.asarray(of["audio"]), 0, -2).reshape(
-        audio_seq.shape)
-    assert np.abs(audio_f - audio_b).max() / scale < 1e-5
     for name in ("dc", "decim", "mixer"):
         for a, b in zip(jax.tree_util.tree_leaves(getattr(st, name)),
                         jax.tree_util.tree_leaves(getattr(st2, name))):
@@ -195,10 +185,9 @@ def test_batched_time_fold_matches_sequential(mode, hq):
 
 
 def test_i16_entry_planes_match_f32():
-    """int16 lane-packed entry (the native-ADC container, dequantized
-    in-kernel) == the f32 plane of the SAME dequantized values, bit-close,
-    on both the batched and the sequential path — including the time-fold
-    (prologue reads the int plane directly)."""
+    """int16 packed entry planes (the native-ADC container, dequantized at
+    entry) == the f32 plane of the SAME dequantized values, bit-close, on
+    both the batched and the sequential path."""
     import functools
 
     kf = 4
@@ -209,10 +198,10 @@ def test_i16_entry_planes_match_f32():
     x_pk_f = np.concatenate([iq.real.astype(np.float32).T,
                              iq.imag.astype(np.float32).T], axis=1)
     x_i16 = np.clip(np.round(x_pk_f * 32768.0), -32768, 32767).astype(np.int16)
-    x_deq = x_i16.astype(np.float32) / 32768.0   # what the kernel dequantizes
+    x_deq = x_i16.astype(np.float32) / 32768.0   # what the entry dequantizes
 
     cfg = ReceiverConfig(sample_rate=FS, frames_per_buffer=N, channels=C,
-                         mode=DemodMode.AM, use_pallas=True, agc_mode="off")
+                         mode=DemodMode.AM, agc_mode="off")
     rx = Receiver(cfg)
     params = rx.default_params(250_000.0)
     step_many = jax.jit(functools.partial(rx._step_many_impl, spectra=True))
@@ -255,8 +244,7 @@ def test_anf_on_batched_path():
                            iq.imag.astype(np.float32).T], axis=1)
 
     cfg = ReceiverConfig(sample_rate=FS, frames_per_buffer=N, channels=C,
-                         mode=DemodMode.AM, use_pallas=True, agc_mode="off",
-                         enable_anf=True)
+                         mode=DemodMode.AM, agc_mode="off", enable_anf=True)
     rx = Receiver(cfg)
     assert rx.batched_capable          # ANF no longer disables it
     params = rx.default_params(250_000.0)
@@ -287,7 +275,7 @@ def test_batched_falls_back_for_scan_modes():
          iq.imag.astype(np.float32).T.reshape(K, N, C)], axis=1)
     cfg = ReceiverConfig(sample_rate=FS, frames_per_buffer=N, channels=C,
                          mode=DemodMode.FMS, rds=True, rds_alg="scan",
-                         use_pallas=True, batched_many=True, batched_wfm=True)
+                         batched_many=True, batched_wfm=True)
     rx = Receiver(cfg)
     params = rx.default_params(250_000.0)
     st = rx.init_state()
@@ -321,8 +309,7 @@ def test_batched_wfm_rds_decodes_ps():
     x_pk = np.stack([iq.real, iq.imag], axis=1).astype(np.float32)  # [T, 2]
 
     cfg = ReceiverConfig(sample_rate=FS, frames_per_buffer=N, channels=1,
-                         mode=DemodMode.FMS, rds=True, use_pallas=True,
-                         batched_many=True)
+                         mode=DemodMode.FMS, rds=True, batched_many=True)
     rx = Receiver(cfg)
     assert rx.batched_wfm and rx.rds_cfg.alg == "open"
     params = rx.default_params(300_000.0)
@@ -346,10 +333,10 @@ def test_batched_wfm_rds_decodes_ps():
 
 
 def test_batched_tm_checkpoint_and_retune():
-    """Round-3 fast-path state (folded front carries, packed tm tails,
-    open-loop tracker states) must checkpoint/restore bit-exactly mid-stream
-    and retune without recompiling (the recovery + no-recompile contracts
-    extend to the new layouts)."""
+    """Batched-path state (front carries, WFM tails, open-loop tracker
+    states) must checkpoint/restore bit-exactly mid-stream and retune
+    without recompiling (the recovery + no-recompile contracts hold on the
+    batched graph)."""
     import dataclasses
 
     from pebblesdr_tpu.utils import checkpoint as ckpt
@@ -367,9 +354,9 @@ def test_batched_tm_checkpoint_and_retune():
                            iq.imag.astype(np.float32).T], axis=1)
 
     cfg = ReceiverConfig(sample_rate=FS, frames_per_buffer=N, channels=C,
-                         mode=DemodMode.FMS, use_pallas=True)
+                         mode=DemodMode.FMS)
     rx = Receiver(cfg)
-    assert rx.wfm_cfg.pallas_tail
+    assert rx.batched_capable
     params = rx.default_params(250_000.0)
     step = jax.jit(functools.partial(rx._step_many_impl, spectra=False))
 
@@ -393,3 +380,39 @@ def test_batched_tm_checkpoint_and_retune():
         params2 = rx.retune(params, 260_000.0)
         st_c, out_c = step(st_a, params2, jnp.asarray(x_pk[:kf * N]))
     assert np.all(np.isfinite(np.asarray(out_c["audio"])))
+
+
+@pytest.mark.parametrize("channels", [3, 5])
+def test_batched_odd_channel_counts(channels):
+    """Odd channel counts with per-channel tunes: the batched graph ==
+    sequential step() calls, and each channel keeps its own tune."""
+    kf = 3
+    t = np.arange(kf * N) / FS
+    tunes = 250_000.0 + 20_000.0 * np.arange(channels)
+    cap = sum(0.3 * (1 + 0.8 * np.cos(2 * np.pi * (700.0 + 100 * i) * t)) / 2
+              * np.exp(2j * np.pi * f * t) for i, f in enumerate(tunes))
+    iq = np.broadcast_to(cap.astype(np.complex64), (channels, kf * N))
+    x_pk = np.concatenate([iq.real.T, iq.imag.T], axis=1).astype(np.float32)
+
+    cfg = ReceiverConfig(sample_rate=FS, frames_per_buffer=N,
+                         channels=channels, mode=DemodMode.AM, agc_mode="off")
+    rx = Receiver(cfg)
+    assert rx.batched_capable
+    params = rx.default_params(tunes)
+    st = rx.init_state()
+    step = jax.jit(functools.partial(rx._step_impl, spectra=True))
+    seq = []
+    for k in range(kf):
+        st, o = step(st, params, jnp.asarray(x_pk[k * N:(k + 1) * N]))
+        seq.append(np.asarray(o["audio"]))
+    _, ob = jax.jit(functools.partial(rx._step_many_impl, spectra=True))(
+        rx.init_state(), params, jnp.asarray(x_pk))
+    np.testing.assert_allclose(np.asarray(ob["audio"]), np.stack(seq),
+                               atol=2e-4)
+    # channel i demodulates its own (700 + 100 i) Hz tone
+    a = np.stack(seq)[-1]
+    tt = np.arange(a.shape[-1]) / cfg.audio_rate
+    for i in range(channels):
+        f = 700.0 + 100 * i
+        amp = np.abs(np.mean(a[i] * np.exp(-2j * np.pi * f * tt))) * 2
+        assert amp > 0.05, (i, amp)

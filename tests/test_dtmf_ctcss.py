@@ -231,7 +231,7 @@ class TestCtcssChain:
                               axis=1)                       # [K*N, 2]
         cfg = ReceiverConfig(sample_rate=self.FS, frames_per_buffer=self.N,
                              mode=DemodMode.FMN, ctcss_tone=123.0,
-                             use_pallas=True, batched_many=True)
+                             batched_many=True)
         rx = Receiver(cfg)
         assert rx.batched_capable
         params = rx.default_params(300_000.0)

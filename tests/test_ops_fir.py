@@ -165,6 +165,28 @@ class TestDecimatorChain:
         _, oneshot = decimator.apply(plan, st2, jnp.asarray(x))
         np.testing.assert_allclose(stream, np.asarray(oneshot), atol=1e-5)
 
+    def test_compose_response_equals_cascade(self):
+        plan = decimator.build_plan(2_048_000, 30_000)
+        h = decimator.compose_response(plan)
+        # DC gain of the composed filter == product of unity stage gains
+        assert abs(h.sum() - 1.0) < 1e-9
+        # impulse through the staged pipeline == composed response, decimated
+        c = 1
+        n = 4096
+        x = np.zeros((c, n), np.complex64)
+        x[0, 0] = 1.0
+        ds = decimator.state_init(plan, c)
+        _, y = decimator.apply(plan, ds, jnp.asarray(x))
+        y = np.asarray(y)[0]
+        f = plan.factor
+        d = len(h) - 1
+        expect = np.zeros_like(y)
+        # y[m] = H[f*m] for f*m <= d (impulse at 0, zero history)
+        for m in range(len(y)):
+            if f * m <= d:
+                expect[m] = h[f * m]
+        assert np.abs(y - expect).max() < 1e-6
+
 
 class TestRound5FirDesigns:
     def test_cfir_kaiser_matches_spec(self):
@@ -206,31 +228,3 @@ class TestRound5FirDesigns:
         pos = A[(W > 1000) & (W < 9000)].min()
         neg = A[(W < -1000) & (W > -9000)].max()
         assert 20 * np.log10(neg / pos) < -30.0
-
-    def test_tm_fir_decimate_matches_channel_major(self):
-        """tm_fir_decimate == fir_apply_real_signal on the transposed
-        stream, including the carried tail across calls."""
-        import jax.numpy as jnp
-        import numpy as np
-
-        from pebblesdr_tpu.ops import fir
-
-        rng = np.random.default_rng(0)
-        taps = np.hanning(31)
-        taps = taps / taps.sum()
-        x = rng.normal(size=(4, 4096)).astype(np.float32)
-        tail = np.zeros((4, 30), np.float32)
-        y_ref, tail_ref = fir.fir_apply_real_signal(
-            jnp.asarray(x), jnp.asarray(taps, jnp.float32),
-            jnp.asarray(tail), decim=2, taps_np=taps)
-        y_tm, tail_tm = fir.tm_fir_decimate(jnp.asarray(x.T), taps,
-                                            jnp.asarray(tail.T), 2)
-        assert float(jnp.abs(y_tm.T - y_ref).max()) < 1e-5
-        assert float(jnp.abs(tail_tm.T - tail_ref).max()) < 1e-6
-        # second call continues the stream identically
-        x2 = rng.normal(size=(4, 4096)).astype(np.float32)
-        y2_ref, _ = fir.fir_apply_real_signal(
-            jnp.asarray(x2), jnp.asarray(taps, jnp.float32), tail_ref,
-            decim=2, taps_np=taps)
-        y2_tm, _ = fir.tm_fir_decimate(jnp.asarray(x2.T), taps, tail_tm, 2)
-        assert float(jnp.abs(y2_tm.T - y2_ref).max()) < 1e-5

@@ -114,14 +114,14 @@ class TestRingPipeline:
         np.testing.assert_allclose(np.asarray(ys), np.stack(ref),
                                    rtol=0, atol=1e-5)
 
-    def test_pallas_receiver_rejected(self):
-        """A Receiver carrying lane-packed Pallas front-end state cannot feed
-        the staged stage fns — must fail loudly, not with a broadcast error."""
+    def test_stage_state_is_receiver_layout(self):
+        """The stage fns carry the Receiver's own front-end state: the
+        decim stage's initial carry is the composed [C, D] history."""
         rx = _rx()
-        if not rx.use_pallas:  # force the packed state layout (CPU tests)
-            rx.use_pallas = True
-        with pytest.raises(ValueError, match="use_pallas=False"):
-            pipeline.am_chain_stages(rx, rx.default_params(0.0))
+        _, init = pipeline.am_chain_stages(rx, rx.default_params(0.0))
+        base = rx.init_state()
+        assert init[1].shape == base.decim.shape == (C, base.decim.shape[1])
+        assert init[0][0].shape == base.dc.shape
 
     def test_mesh_size_validation(self):
         rx = _rx()

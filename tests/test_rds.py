@@ -7,26 +7,8 @@ import pytest
 from pebblesdr_tpu.demod import rds
 
 
-def make_ps_groups(pi, ps_text, repeats=8):
-    """0A groups carrying an 8-char PS name."""
-    assert len(ps_text) == 8
-    bits = []
-    for _ in range(repeats):
-        for seg in range(4):
-            b = (0 << 12) | (0 << 11) | (5 << 5) | seg  # group 0A, PTY 5
-            c = 0xE0E0  # AF codes (none)
-            d = (ord(ps_text[2 * seg]) << 8) | ord(ps_text[2 * seg + 1])
-            bits.extend(rds.encode_group(pi, b, c, d))
-    return bits
-
-
-def differential_encode(bits):
-    out = []
-    last = 0
-    for b in bits:
-        last = last ^ b
-        out.append(last)
-    return out
+make_ps_groups = rds.ps_group_bits
+differential_encode = rds.differential_encode
 
 
 class TestBlockCoding:
@@ -69,7 +51,7 @@ class TestBlockCoding:
         assert g.callsign == "KAAA"
 
     def test_radiotext_2a(self):
-        text = "HELLO FROM THE TPU SDR FRAMEWORK"
+        text = "HELLO FROM THE PEBBLE SDR CHAIN!"
         bits = []
         for seg in range(8):
             b = (2 << 12) | (5 << 5) | seg

@@ -124,7 +124,7 @@ class TestKillAndResume:
                                           ref[seq])
 
     def test_resume_bit_exact_round4_states(self, tmp_path):
-        """Round-4 carry state (in-kernel NB avg/spike-tail, CTCSS coherent
+        """Round-4 carry state (front NB avg/spike-tail, CTCSS coherent
         EWMA, ANF weights, RDS premix twiddle phase) must checkpoint/resume
         bit-exactly mid-stream."""
         from pebblesdr_tpu.chain.receiver import Receiver, ReceiverConfig
@@ -135,7 +135,7 @@ class TestKillAndResume:
         cfg = ReceiverConfig(sample_rate=fs, frames_per_buffer=n,
                              channels=2, mode=DemodMode.FMN,
                              enable_noise_blanker=True, enable_anf=True,
-                             ctcss_tone=123.0, use_pallas=True)
+                             ctcss_tone=123.0)
         rx = Receiver(cfg)
         params = rx.default_params(300_000.0)
         t = np.arange(8 * n) / fs
@@ -165,8 +165,7 @@ class TestKillAndResume:
 
         # and the RDS premix twiddle phase (FMS + rds)
         cfg_w = ReceiverConfig(sample_rate=fs, frames_per_buffer=n,
-                               channels=1, mode=DemodMode.FMS, rds=True,
-                               use_pallas=True)
+                               channels=1, mode=DemodMode.FMS, rds=True)
         rxw = Receiver(cfg_w)
         pw = rxw.default_params(300_000.0)
         comp = 0.3 * np.sin(2 * np.pi * 1000.0 * t) \

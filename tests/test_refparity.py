@@ -4,7 +4,7 @@ tools/refharness builds PebbleSDR's actual pebblelib/application sources
 (read-only from /root/reference, Qt surface stubbed) into a headless CLI
 that runs IQ through the reference receive chain
 (application/receiver.cpp:758-1009).  These tests feed the SAME broadband
-IQ to that binary and to the TPU chain and assert demodulated-sample
+IQ to that binary and to this chain and assert demodulated-sample
 parity — the BASELINE.md north-star target, measured against the
 reference's arithmetic rather than an independent golden.
 

@@ -6,7 +6,7 @@ headless (Qt surface stubbed, read-only from /root/reference) into a CLI
 (`refchain`) that runs recorded IQ through the reference receive chain
 (application/receiver.cpp:758-1009) and writes demodulated samples.  This
 module builds that harness on demand, drives it, and compares its output
-against the TPU chain's on the same IQ.
+against this chain's on the same IQ.
 
 The comparison: coarse integer alignment by cross-correlation (the two
 chains have different — both correct — group delays), then the same

@@ -29,13 +29,10 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(os.path.dirname(__file__), "..",
-                                   ".jax_cache"))
-    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
-                                    "tests"))
-    from test_rds import differential_encode, make_ps_groups
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    from pebblesdr_tpu.utils import compile_cache
 
+    compile_cache.enable()
     from pebblesdr_tpu.chain.receiver import Receiver, ReceiverConfig
     from pebblesdr_tpu.demod import rds as rds_mod
     from pebblesdr_tpu.demod.modes import DemodMode
@@ -48,8 +45,8 @@ def main():
     params = rx.default_params(250_000.0)
 
     # K-block dispatch signal with a real RDS group stream; loops seamlessly
-    bits = make_ps_groups(0x54A8, "PEBBLES ", repeats=24)
-    sym = np.asarray(differential_encode(bits), np.float64) * 2 - 1
+    bits = rds_mod.ps_group_bits(0x54A8, "PEBBLES ", repeats=24)
+    sym = np.asarray(rds_mod.differential_encode(bits), np.float64) * 2 - 1
     t = np.arange(K * N) / FS
     sym_idx = np.minimum((t * rds_mod.RDS_BAUD).astype(np.int64),
                          len(sym) - 1)
@@ -70,13 +67,12 @@ def main():
     import functools
 
     step = jax.jit(functools.partial(rx._step_many_impl, spectra=False))
-    sync = jax.jit(lambda x: jnp.sum(jnp.abs(x)))
     check = jax.jit(lambda o: (jnp.all(jnp.isfinite(o["audio"])),
                                jnp.all(o["pilot_locked"][-1]),
                                jnp.max(jnp.abs(o["audio"]))))
 
     state, out = step(state, params, iq_dev)
-    float(sync(out["audio"]))
+    jax.block_until_ready(out["audio"])
     dec = rds_mod.RdsBlockDecoder()
     grp = rds_mod.RdsGroupDecoder()
     dispatches = 0
